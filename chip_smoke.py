@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's A1 read path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py            # the whole run (one GPU, ~2 minutes)
+    python3 chip_smoke.py            # the whole run (one GPU, ~5 minutes)
     python3 chip_smoke.py --quick    # build and check the kernels only
 
 Phases, each printed on its own line:
@@ -10,22 +10,33 @@ Phases, each printed on its own line:
   2. build — the CUDA kernels under ``src/repro_torch/csrc``, one ``nvcc``
      each, in parallel;
   3. kernel checks — every kernel against its plain PyTorch version on the
-     card at edge-case shapes (exact equality: every output is an integer);
+     card at edge-case shapes (exact equality, floats compared as bits);
   4. load — one shard of the a1-kg paper-scale config (one A1 machine's
      share of the §6 graph) filled by the port's film-KG loader;
   5. serve — 64-query batches of the a1-kg shape cells (serve_q1 2-hop,
      serve_q2 3-hop, serve_q3 2-branch star, all counts) and one mixed
      batch through ``GraphDB.query(..., fused=True)``, then the uniform
      executor; every result must equal the ``backend="ref"`` run bit for
-     bit, and a small store must agree with a plain set computation;
-  6. kernels — each kernel at the inputs the main path gave it: its
-     launches during phase 5, its time beside the plain version's, the
-     bound and a library call, as one JSON line.
+     bit;
+  6. shared — the same batches with ``budget="shared"`` (the serving tier's
+     mode for batches of 64 and more): equal to ``backend="ref"`` bit for
+     bit, and holding the shared-mode contract against phase 5's results;
+  7. nearest — a second store (the JAX package's hybrid vector+graph
+     workload at one machine's size: 4 M vector-indexed docs) and batches of
+     ``Nearest``-rooted queries in both budget modes, equal to
+     ``backend="ref"``;
+  8. kernels — each kernel at the inputs the main path gave it: its
+     launches during phases 5-7, its time beside the plain version's, the
+     bound and a library call, as one JSON line;
+  9. small reference — small stores against plain set computations and a
+     numpy k-NN in the kernels' summation order.
 
-Any failed check raises, so the script exits non-zero.  The last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 before
-printing any result.  ``--rehearse`` runs phases 4-5 at a tiny size on the
-CPU (plain kernel versions, no build) and then exits 1.
+Each of phases 5-7 sets the kernels' launch counts to 0 just before its
+timed batches and reads them just after.  Any failed check raises, so the
+script exits non-zero.  The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits 1 before printing any result.  ``--rehearse``
+runs phases 4-7 and 9 at a tiny size on the CPU (plain kernel versions, no
+build) and then exits 1.
 """
 from __future__ import annotations
 
@@ -51,6 +62,12 @@ KG_FULL = dict(n_films=3_500_000, n_actors=10_000_000, n_directors=1_000_000,
 BATCHES = 8                     # timed batches per serve cell
 KG_REHEARSE = dict(n_films=3_000, n_actors=6_000, n_directors=500,
                    n_genres=16)
+# the hybrid vector+graph workload (benchmarks/bench_vector.py): 16 docs a
+# tag, two doc.tag edges a doc; d = the a1-kg payload width, one machine's
+# 4 M vector-indexed docs
+NEAREST_FULL = dict(n_docs=4_194_304, d=32)
+NEAREST_REHEARSE = dict(n_docs=4_096, d=32)
+NEAREST_K = 8
 
 KERNELS = {   # wrapper -> (source, the TPU kernel's pallas_call it replaces)
     "searchsorted_left_ranged": (
@@ -62,7 +79,16 @@ KERNELS = {   # wrapper -> (source, the TPU kernel's pallas_call it replaces)
                            "src/repro/kernels/dedup_compact/kernel.py:155"),
     "sort_rows": ("src/repro_torch/csrc/dedup_compact.cu",
                   "src/repro/kernels/dedup_compact/kernel.py:132"),
+    "sort_pairs": ("src/repro_torch/csrc/sort_pairs.cu",
+                   "src/repro/kernels/dedup_compact/kernel.py:181"),
+    "knn_topk": ("src/repro_torch/csrc/knn_topk.cu",
+                 "src/repro/kernels/knn_topk/kernel.py:144"),
 }
+# the main path each kernel belongs to: phase 5's per-query serve, phase
+# 6's shared serve or phase 7's nearest serve
+PATH_OF = {"searchsorted_left_ranged": "per_query", "expand": "per_query",
+           "dedup_compact_rows": "per_query", "sort_rows": "per_query",
+           "sort_pairs": "shared", "knn_topk": "nearest"}
 
 
 def say(tag: str, **kw) -> None:
@@ -226,8 +252,101 @@ def phase_kernel_checks():
         raise AssertionError("a row wider than MAX_W was accepted")
     except ValueError:
         pass
+    n_cases += _check_sort_pairs(rng, t)
+    n_cases += _check_knn_topk(rng, t)
     torch.cuda.synchronize()
     say("KERNEL_CHECKS", cases=n_cases, equal=True)
+
+
+def _check_sort_pairs(rng, t) -> int:
+    """sort_pairs against its plain version and the library sort of the
+    packed key: one pair, widths that are not powers of two, equal pairs,
+    ghosts, the int32 extremes, and widths up to 2**20."""
+    import numpy as np
+    from repro_torch.kernels.dedup_compact import kernel as dk
+    from repro_torch.kernels.dedup_compact import ref as dref
+    i32min = -2**31
+    cases = []
+    for W in (1, 2, 37, 8191, 8192, 8193, 100_003, 196_608, 1 << 20):
+        k1 = rng.integers(-50, 50, W)
+        k2 = rng.integers(i32min, I32MAX, W, endpoint=True)
+        cases.append((f"random W={W}", k1, k2))
+    W = 30_000
+    cases.append(("all pairs equal", np.full(W, 7), np.full(W, -3)))
+    k1 = rng.integers(0, 64, W)
+    k2 = rng.integers(0, 1_000_000, W)
+    ghost = rng.random(W) < 0.5
+    k1[ghost], k2[ghost] = 64, I32MAX                  # (R, PAD) ghosts
+    cases.append(("ghosts (R, PAD)", k1, k2))
+    ext = np.array([i32min, I32MAX, 0, -1, 1])
+    cases.append(("int32 extremes", rng.choice(ext, 70_001),
+                  rng.choice(ext, 70_001)))
+    for what, k1, k2 in cases:
+        a, b = t(k1), t(k2)
+        got = dk.sort_pairs(a, b)
+        _exact(got, dk.sort_pairs_plain(a, b), f"sort_pairs {what}")
+        _exact(got, dref.sort_pairs(a, b), f"sort_pairs {what} vs torch.sort")
+    return len(cases)
+
+
+def _check_knn_topk(rng, t) -> int:
+    """knn_topk against its plain version, bit for bit (distances compared
+    as bits): k = 1, k > N, N not a multiple of the chunk, nothing visible,
+    duplicate embeddings (ties broken by gid), zero embeddings (a -0.0
+    product), a type mismatch, create == ts and delete == ts, rows past one
+    row tile, and a k that needs several merge passes."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.knn_topk import kernel as kk
+    dev = torch.device("cuda")
+
+    def case(R, N, D, seed):
+        r = np.random.default_rng(seed)
+        gid = r.permutation(4 * N)[:N]
+        gid[r.random(N) < 0.2] = -1
+        cr = r.integers(0, 10, N)
+        return dict(vecs=r.normal(size=(R, D)), emb=r.normal(size=(N, D)),
+                    gid=gid, vtype=r.integers(0, 3, N), create=cr,
+                    delete=np.where(r.random(N) < 0.3,
+                                    cr + r.integers(1, 10, N), I32MAX),
+                    q_vt=r.integers(0, 3, R), q_ts=r.integers(0, 10, R))
+    cases = []
+    c = case(5, 1000, 32, 1)
+    cases.append(("k=1", c, 1))
+    cases.append(("k > N", case(3, 5, 4, 2), 16))
+    cases.append(("N not a multiple of the chunk", case(64, 100_003, 32, 3),
+                  8))
+    c = case(4, 3000, 8, 4)
+    c["gid"][:] = -1
+    cases.append(("nothing visible", c, 8))
+    c = case(6, 4000, 16, 5)
+    c["emb"][::2] = c["emb"][0]                        # duplicate rows
+    c["vecs"][0] = c["emb"][0]
+    cases.append(("duplicate embeddings", c, 32))
+    c = case(4, 500, 8, 6)
+    c["emb"][:100] = 0.0
+    c["vecs"][:] = -np.abs(c["vecs"])                  # products of -0.0
+    cases.append(("zero embeddings", c, 16))
+    c = case(4, 2000, 8, 7)
+    c["q_vt"][:] = 5
+    cases.append(("type mismatch", c, 8))
+    c = case(8, 2000, 8, 8)
+    c["create"][::3] = c["q_ts"][0]
+    c["delete"][1::3] = c["q_ts"][0]
+    c["q_ts"][:] = c["q_ts"][0]
+    cases.append(("create == ts and delete == ts", c, 8))
+    cases.append(("130 rows, k=100", case(130, 20_000, 32, 9), 100))
+    cases.append(("k=4096", case(3, 60_000, 32, 10), 4096))
+    for what, c, k in cases:
+        args = [torch.as_tensor(np.ascontiguousarray(c[n], np.float32),
+                                device=dev) for n in ("vecs", "emb")]
+        args += [t(c[n]) for n in ("gid", "vtype", "create", "delete",
+                                   "q_vt", "q_ts")]
+        got = kk.knn_topk(*args, k)
+        want = kk.knn_topk_plain(*args, k)
+        _exact((got[0].view(torch.int32), got[1]),
+               (want[0].view(torch.int32), want[1]), f"knn_topk {what}")
+    return len(cases)
 
 
 class Recorder:
@@ -237,18 +356,23 @@ class Recorder:
     def __init__(self):
         from repro_torch.kernels.dedup_compact import kernel as dk
         from repro_torch.kernels.edge_expand import kernel as ek
+        from repro_torch.kernels.knn_topk import kernel as kk
         from repro_torch.kernels.sorted_lookup import kernel as sk
         self.best = {}
         self.mods = {"searchsorted_left_ranged": sk, "expand": ek,
-                     "dedup_compact_rows": dk, "sort_rows": dk}
+                     "dedup_compact_rows": dk, "sort_rows": dk,
+                     "sort_pairs": dk, "knn_topk": kk}
         self.orig = {n: getattr(m, n) for n, m in self.mods.items()}
         for name, mod in self.mods.items():
             setattr(mod, name, self._wrap(name, self.orig[name]))
 
-    WORK = {"searchsorted_left_ranged": lambda a, kw: a[1].numel(),
+    WORK = {"searchsorted_left_ranged":     # the index probe, not a delta
+            lambda a, kw: a[0].numel() * a[1].numel(),
             "expand": lambda a, kw: kw["cap_tiles"],
             "dedup_compact_rows": lambda a, kw: a[0].numel(),
-            "sort_rows": lambda a, kw: a[0].numel()}
+            "sort_rows": lambda a, kw: a[0].numel(),
+            "sort_pairs": lambda a, kw: a[0].numel(),
+            "knn_topk": lambda a, kw: a[0].shape[0] * a[1].shape[0]}
 
     def _wrap(self, name, fn):
         def rec(*args, **kw):
@@ -296,7 +420,8 @@ def _same(a, b, what):
     """Bit-identical QueryResults (counts, flags, rows)."""
     import numpy as np
     check(a.failed == b.failed, f"{what}: failed")
-    for f in ("counts", "failed_q", "rows_gid", "truncated", "deadline_q"):
+    for f in ("counts", "failed_q", "rows_gid", "truncated", "deadline_q",
+              "shared_ovf_q"):
         x, y = getattr(a, f), getattr(b, f)
         check((x is None) == (y is None) and (
             x is None or np.array_equal(x, y)), f"{what}: {f} differs")
@@ -360,29 +485,67 @@ def _batches(kg, rng, n_batches, Q):
     return out
 
 
-def phase_serve(kg, dev, n_batches: int, caps_kw=A1_CAPS):
-    import numpy as np
+def _sync(dev):
     import torch
-    from repro_torch.core.query.executor import QueryCaps
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _serve_line(cell, secs, results, Q, **extra):
+    """One SERVE line: throughput, latency and fast-fail share of a cell's
+    timed batches, and the mean count of the answered queries."""
+    import numpy as np
+    ms = np.asarray(secs) * 1e3
+    failed = np.concatenate([r.failed_q for r in results])
+    counts = np.concatenate([r.counts for r in results])
+    say("SERVE", cell=cell, batches=len(secs), queries_per_batch=Q,
+        qps=Q * len(secs) / float(np.sum(secs)), p50_ms=float(np.median(ms)),
+        p99_ms=float(np.percentile(ms, 99)),
+        fast_fail_share=float(failed.mean()),
+        mean_count_unfailed=(float(counts[~failed].mean())
+                             if (~failed).any() else None), **extra)
+
+
+def _timed(dev, batches, launches, path, **kw):
+    """Run every (cell, db, queries) batch once through ``GraphDB.query``
+    on the kernel backend, timed, with the launch counts set to 0 just
+    before and read into ``launches[path]`` just after.  Returns
+    {cell: [seconds]}, [(cell, queries, result)] and the per-cell peak
+    frontier bytes of the batch's budget mode."""
+    from repro_torch.core.query import planner
     from repro_torch.kernels import _cuda
+    key = ("shared_peak_bytes" if kw.get("budget") == "shared"
+           else "per_query_peak_bytes")
+    lat, results, peak = {}, [], {}
+    _cuda.reset_launches()
+    for cell, db, qs in batches:
+        planner.reset_stats()
+        t0 = time.perf_counter()
+        res = db.query(qs, backend="kernel", **kw)
+        _sync(dev)
+        lat.setdefault(cell, []).append(time.perf_counter() - t0)
+        results.append((cell, qs, res))
+        peak[cell] = max(peak.get(cell, 0), planner.FRONTIER_STATS[key])
+    launches[path] = dict(_cuda.LAUNCHES)
+    return lat, results, peak
+
+
+def phase_serve(kg, dev, n_batches: int, launches, caps_kw=A1_CAPS):
+    """The per-query-budget cells: fused batches (the timed main path),
+    then the uniform executor and a select batch, each equal to
+    ``backend="ref"`` on the same card."""
+    import numpy as np
+    from repro_torch.core.query.executor import QueryCaps
     db = kg.db
     caps = QueryCaps(**caps_kw)
     rng = np.random.default_rng(1)
     batches = _batches(kg, rng, n_batches, 64)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     # warm-up (first-use allocations), not counted
     db.query(batches[0][1], caps=caps, fused=True, backend="kernel")
-    sync()
-    _cuda.reset_launches()
-    rec = Recorder()
-    lat, results = {}, []
-    for cell, qs in batches:
-        t0 = time.perf_counter()
-        res = db.query(qs, caps=caps, fused=True, backend="kernel")
-        sync()
-        lat.setdefault(cell, []).append(time.perf_counter() - t0)
-        results.append((cell, qs, res))
+    _sync(dev)
+    lat, results, peak = _timed(dev, [(c, db, qs) for c, qs in batches],
+                                launches, "per_query", caps=caps, fused=True)
     uni = []
     for cell, qs in batches:
         if cell.startswith("mixed") or any(c == cell for c, _, _ in uni):
@@ -392,9 +555,7 @@ def phase_serve(kg, dev, n_batches: int, caps_kw=A1_CAPS):
     sel = [q_select(k) for k in zipf_keys(rng, kg.n_directors, 1_000, 64)]
     sel_f = db.query(sel, caps=caps, fused=True, backend="kernel")
     sel_u = db.query(sel, caps=caps, fused=False, backend="kernel")
-    sync()
-    launches = dict(_cuda.LAUNCHES)
-    rec.restore()
+    _sync(dev)
 
     # every result equals the reference backend's on the same card
     for cell, qs, res in results:
@@ -408,32 +569,213 @@ def phase_serve(kg, dev, n_batches: int, caps_kw=A1_CAPS):
     _same(sel_u, db.query(sel, caps=caps, fused=False, backend="ref"),
           "uniform select")
     for cell, ts in lat.items():
-        ms = np.asarray(ts) * 1e3
-        failed = np.concatenate([r.failed_q for c, _, r in results
-                                 if c == cell])
-        counts = np.concatenate([r.counts for c, _, r in results if c == cell])
-        say("SERVE", cell=cell, batches=len(ts), queries_per_batch=64,
-            qps=64 * len(ts) / float(np.sum(ts)), p50_ms=float(np.median(ms)),
-            p99_ms=float(np.percentile(ms, 99)),
-            fast_fail_share=float(failed.mean()),
-            mean_count_unfailed=(float(counts[~failed].mean())
-                                 if (~failed).any() else None))
+        _serve_line(cell, ts, [r for c, _, r in results if c == cell], 64,
+                    peak_frontier_bytes=peak[cell],
+                    tile_buffer_bytes=_tile_buffer_bytes(
+                        _firsts(batches)[cell], caps, False))
     say("SERVE_PARITY", fused_batches=len(results), uniform_batches=len(uni),
         select_batches=2, identical_to_ref=True)
     if dev.type == "cuda":
-        firsts = {}
-        for cell, qs in batches:
-            firsts.setdefault(cell, qs)
-        for cell, qs in firsts.items():
-            phase_profile(db, cell, qs, caps, float(np.median(lat[cell])))
-    return launches, rec.best
+        for cell, qs in _firsts(batches).items():
+            phase_profile(db, cell, qs, float(np.median(lat[cell])),
+                          caps=caps, fused=True)
+    return batches, results, peak
+
+
+def _tile_buffer_bytes(queries, caps, shared: bool) -> int:
+    """Bytes of one direction's expand tile buffers (four int32 pools of
+    128-lane tiles) as the planners size them: ``R*(min(F, E) + 1 +
+    E/128)`` tiles per-query, ``FS + 1 + ES/128`` shared."""
+    from repro_torch.core.query import planner
+    R = sum(len(q.get("intersect", (q,))) for q in queries)
+    F, E = caps.frontier, caps.expand
+    if shared:
+        tiles = (planner.shared_budget(R, F) + 1
+                 + -(-planner.shared_budget(R, E) // 128))
+    else:
+        tiles = R * (min(F, E) + 1 + -(-E // 128))
+    return tiles * 128 * 4 * 4
+
+
+def _firsts(batches):
+    out = {}
+    for cell, qs in batches:
+        out.setdefault(cell, qs)
+    return out
+
+
+def _shared_contract(sh, pq, what):
+    """Shared mode against per-query mode on one batch: every per-query
+    flag is set in shared mode, shared-pool flags are failures, and every
+    query flagged in neither mode has the same count."""
+    import numpy as np
+    check(bool((sh.failed_q | ~pq.failed_q).all()),
+          f"{what}: a per-query flag is clear in shared mode")
+    check(not (sh.shared_ovf_q & ~sh.failed_q).any(),
+          f"{what}: shared_ovf_q outside failed_q")
+    ok = ~sh.failed_q
+    check(np.array_equal(sh.counts[ok], pq.counts[ok]),
+          f"{what}: unflagged counts differ from per-query mode")
+
+
+def phase_serve_shared(kg, dev, batches, pq_results, pq_peak, launches,
+                       caps_kw=A1_CAPS):
+    """Phase 5's batches with ``budget="shared"``: each equal to
+    ``backend="ref"`` with the same budget, and holding the shared-mode
+    contract against the per-query result of the same batch."""
+    import numpy as np
+    from repro_torch.core.query.executor import QueryCaps
+    db = kg.db
+    caps = QueryCaps(**caps_kw)
+    db.query(batches[0][1], caps=caps, budget="shared", backend="kernel")
+    _sync(dev)
+    lat, results, peak = _timed(
+        dev, [(f"{c}/shared", db, qs) for c, qs in batches], launches,
+        "shared", caps=caps, budget="shared")
+    for (cell, qs, res), (_, _, pq) in zip(results, pq_results):
+        _same(res, db.query(qs, caps=caps, budget="shared", backend="ref"),
+              f"shared {cell}")
+        _shared_contract(res, pq, cell)
+    rs_qs = {c: qs for c, qs, _ in results}
+    for cell, ts in lat.items():
+        rs = [r for c, _, r in results if c == cell]
+        _serve_line(cell, ts, rs, 64, shared_ovf_share=float(
+            np.concatenate([r.shared_ovf_q for r in rs]).mean()),
+            shared_peak_frontier_bytes=peak[cell],
+            per_query_peak_frontier_bytes=pq_peak[cell[:-len("/shared")]],
+            shared_tile_buffer_bytes=_tile_buffer_bytes(rs_qs[cell], caps,
+                                                        True),
+            per_query_tile_buffer_bytes=_tile_buffer_bytes(rs_qs[cell], caps,
+                                                           False))
+    say("SHARED_PARITY", batches=len(results), identical_to_ref=True,
+        contract_held=True)
+    if dev.type == "cuda":
+        for cell, qs in _firsts(batches).items():
+            phase_profile(db, f"{cell}/shared", qs,
+                          float(np.median(lat[f"{cell}/shared"])), caps=caps,
+                          budget="shared")
+
+
+def build_doc_store(dev, n_docs: int, d: int, seed: int = 7):
+    """The hybrid vector+graph workload of ``benchmarks/bench_vector.py``
+    (``doc`` vertices whose ``d`` f32 attributes are drawn N(0, 1), ``tag``
+    vertices, 16 docs a tag, doc i linked to tags i % n_tags and
+    (7i + 3) % n_tags), laid out by the port's loader on one shard and
+    vector-indexed.  Returns (db, edges, load seconds, backfill seconds)."""
+    import numpy as np
+    from repro_torch.core.addressing import StoreConfig
+    from repro_torch.core.catalog import Catalog
+    from repro_torch.core.graphdb import GraphDB
+    from repro_torch.data.kg import assemble
+    t0 = time.perf_counter()
+    n_tags = n_docs // 16
+    n_v = n_docs + n_tags
+    cfg = StoreConfig(n_shards=1, cap_v=n_v, cap_e=2 * n_docs,
+                      cap_delta=16_384, cap_idx=n_v, cap_idx_delta=16_384,
+                      cap_vec=n_docs, d_f32=d, d_i32=2)
+    catalog = Catalog()
+    catalog.create_tenant("default")
+    catalog.create_graph("default", "g")
+    fa = tuple(f"f{i}" for i in range(d))
+    for name in ("doc", "tag"):
+        catalog.create_vertex_type("default", "g", name, fa, ("x", "y"),
+                                   max_f_cols=d, max_i_cols=2)
+    catalog.create_edge_type("default", "g", "doc.tag")
+    rng = np.random.default_rng(seed)
+    f = np.zeros((n_v, d), np.float32)
+    f[:n_docs] = rng.standard_normal((n_docs, d), np.float32)
+    i = np.zeros((n_v, 2), np.int32)
+    i[:n_docs, 0] = np.arange(n_docs)
+    docs = np.arange(n_docs)
+    edges = dict(src=np.repeat(docs, 2),
+                 dst=n_docs + np.stack([docs % n_tags,
+                                        (7 * docs + 3) % n_tags],
+                                       1).reshape(-1))
+    edges["etype"] = np.zeros_like(edges["src"])
+    store = assemble(cfg, dict(
+        gid=np.arange(n_v), vtype=np.repeat([0, 1], [n_docs, n_tags]),
+        key=np.concatenate([docs, 10_000 + np.arange(n_tags)]), f=f, i=i),
+        edges, 1, dev)
+    db = GraphDB(cfg, catalog=catalog, device=dev, store=store)
+    db.v_next[:] = n_v
+    _sync(dev)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    db.vector_index("doc")
+    _sync(dev)
+    return db, edges, load_s, time.perf_counter() - t0
+
+
+def q_near(vec, k=NEAREST_K):
+    """``Nearest`` k docs -> doc.tag -> tag count (bench_vector's query)."""
+    return {"nearest": {"type": "doc", "vector": [float(x) for x in vec],
+                        "k": k},
+            "_out_edge": {"type": "doc.tag",
+                          "_target": {"type": "tag", "select": "count"}}}
+
+
+def phase_nearest(dev, sizes, n_batches: int, launches, caps_kw=A1_CAPS):
+    """Nearest-rooted batches on the doc store: 64 distinct query vectors
+    a batch in both budget modes, and single queries; each batch equal to
+    ``backend="ref"`` on the same card."""
+    import numpy as np
+    import torch
+    from repro_torch.core.query.executor import QueryCaps
+    db, _, load_s, backfill_s = build_doc_store(dev, **sizes)
+    say("LOAD", store="docs", seconds=load_s, backfill_seconds=backfill_s,
+        store_bytes=db.store.nbytes(),
+        memory_allocated=(torch.cuda.memory_allocated()
+                          if dev.type == "cuda" else None),
+        docs=sizes["n_docs"], tags=sizes["n_docs"] // 16,
+        edges=2 * sizes["n_docs"], vx_count=int(db.vx_count.sum()),
+        source="benchmarks/bench_vector.py:24-55, d = a1-kg d_f32")
+    caps = QueryCaps(**caps_kw)
+    rng = np.random.default_rng(2)
+    d = sizes["d"]
+    b64 = [[q_near(v) for v in rng.standard_normal((64, d))]
+           for _ in range(n_batches)]
+    b1 = [[q_near(rng.standard_normal(d))] for _ in range(n_batches)]
+    db.query(b64[0], caps=caps, backend="kernel")
+    db.query(b64[0], caps=caps, budget="shared", backend="kernel")
+    _sync(dev)
+    cells = [("nearest_k8/b64", b64, {}),
+             ("nearest_k8/b64/shared", b64, {"budget": "shared"}),
+             ("nearest_k8/b1", b1, {})]
+    runs = {}
+    lat_all = {}
+    for path_kw in ({}, {"budget": "shared"}):
+        todo = [(c, db, qs) for c, bs, kw in cells if kw == path_kw
+                for qs in bs]
+        path = "nearest" if not path_kw else "nearest_shared"
+        lat, results, _ = _timed(dev, todo, launches, path, caps=caps,
+                                 **path_kw)
+        lat_all.update(lat)
+        runs[path] = results
+    for cell, bs, kw in cells:
+        rs = [(qs, r) for rr in runs.values() for c, qs, r in rr
+              if c == cell]
+        for qs, res in rs:
+            _same(res, db.query(qs, caps=caps, backend="ref", **kw),
+                  f"{cell}")
+            check(not res.failed_q.any() and bool(
+                ((res.counts >= 1) & (res.counts <= 2 * NEAREST_K)).all()),
+                  f"{cell}: counts {res.counts.tolist()} outside [1, 16]")
+        _serve_line(cell, lat_all[cell], [r for _, r in rs], len(bs[0]))
+    say("NEAREST_PARITY", batches=sum(len(bs) for _, bs, _ in cells),
+        identical_to_ref=True)
+    if dev.type == "cuda":
+        for cell, bs, kw in cells:
+            phase_profile(db, cell, bs[0], float(np.median(lat_all[cell])),
+                          caps=caps, **kw)
 
 
 OWN_KERNELS = ("searchsorted_left_ranged_kernel", "expand_kernel",
-               "dedup_compact_rows_kernel", "sort_rows_kernel")
+               "dedup_compact_rows_kernel", "sort_rows_kernel",
+               "chunk_sort_kernel", "global_step_kernel",
+               "chunk_merge_kernel", "knn_chunk_kernel", "knn_merge_kernel")
 
 
-def phase_profile(db, cell, qs, caps, p50_s):
+def phase_profile(db, cell, qs, p50_s, **kw):
     """Device busy time and kernel launches of one fused batch (profiler):
     the share of it in the port's own kernels, and the busy time against
     the profiled batch's wall time and the unprofiled p50 latency.  The
@@ -443,7 +785,7 @@ def phase_profile(db, cell, qs, caps, p50_s):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        db.query(qs, caps=caps, fused=True, backend="kernel")
+        db.query(qs, backend="kernel", **kw)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     kern = _device_events(prof)
@@ -511,7 +853,45 @@ def phase_small_reference(dev):
     check(not res.failed_q.any(), "small store: unexpected fast-fail")
     check(np.array_equal(res.counts, np.asarray(want)),
           f"small store: counts {res.counts.tolist()} != {want}")
-    say("SMALL_REFERENCE", queries=len(want), equal=True)
+    sh = db.query([q1(d) for d in dids] + [q2(d) for d in dids]
+                  + [q3(d, a) for d, a in zip(dids, aids)], caps=caps,
+                  budget="shared", backend="kernel")
+    check(not sh.failed_q.any() and sh.counts.tolist() == want,
+          f"small store, budget=shared: counts {sh.counts.tolist()}")
+    n_near = _small_nearest_reference(dev)
+    say("SMALL_REFERENCE", queries=2 * len(want) + n_near, equal=True)
+
+
+def _small_nearest_reference(dev) -> int:
+    """A small doc store: Nearest -> doc.tag counts in both budget modes
+    against numpy, which sums the distances in the port's order (float32,
+    each multiply and add rounded on its own) and takes the k smallest by
+    (dist, gid)."""
+    import numpy as np
+    db, edges, _, _ = build_doc_store(dev, n_docs=3_000, d=32, seed=5)
+    emb = db.store.vx_emb[:3_000].cpu().numpy()
+    gid = db.store.vx_gid[:3_000].cpu().numpy()
+    tags_of = {}
+    for s_, t_ in zip(edges["src"].tolist(), edges["dst"].tolist()):
+        tags_of.setdefault(s_, set()).add(t_)
+    vecs = np.random.default_rng(9).standard_normal((16, 32), np.float32)
+    want = []
+    for v in vecs:
+        ee = np.zeros(emb.shape[0], np.float32)
+        ip = np.zeros(emb.shape[0], np.float32)
+        for d in range(emb.shape[1]):
+            ee = ee + emb[:, d] * emb[:, d]
+            ip = ip + v[d] * emb[:, d]
+        dist = (ee - np.float32(2.0) * ip) + np.float32(0.0)
+        top = np.lexsort((gid, dist))[:NEAREST_K]
+        want.append(len(set().union(*(tags_of[int(gid[j])] for j in top))))
+    for budget in ("per-query", "shared"):
+        res = db.query([q_near(v) for v in vecs], budget=budget,
+                       backend="kernel")
+        check(res.counts.tolist() == want,
+              f"small nearest, budget={budget}: {res.counts.tolist()} != "
+              f"{want}")
+    return 2 * len(want)
 
 
 def _events_ms(fn, n: int = 20) -> float:
@@ -572,6 +952,18 @@ def _bound(name, args, kw, out):
         nbytes = (8 * starts.shape[0] + 8 * cap_tiles
                   + len(pools) * 4 * (cap_tiles * 128 + lanes))
         ops = 0
+    elif name == "sort_pairs":
+        W = args[0].shape[0]
+        nbytes = 16 * W                    # two i32 keys in, two out
+        ops = W * max(1, math.ceil(math.log2(max(W, 2))))
+    elif name == "knn_topk":
+        vecs, emb, k = args[0], args[1], args[8]
+        (R, D), N = vecs.shape, emb.shape[0]
+        # the index (emb + four i32 columns) and the rows read once, the
+        # (R, k) distances and gids written once; a multiply and an add
+        # for every (row, entry, dim)
+        nbytes = 4 * N * D + 16 * N + 4 * R * D + 8 * R + 8 * R * k
+        ops = 2 * R * N * D
     else:
         x = args[0]
         R, W = x.shape
@@ -583,32 +975,57 @@ def _bound(name, args, kw, out):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _bits(ts):
+    """Float tensors as their int32 bits (exact comparison, -0.0 != 0.0)."""
+    import torch
+    return tuple(t.view(torch.int32) if t.is_floating_point() else t
+                 for t in ts)
+
+
 def phase_kernel_report(launches, best):
     import torch
     from repro_torch.kernels.dedup_compact import kernel as dk
+    from repro_torch.kernels.dedup_compact import ref as dref
     from repro_torch.kernels.edge_expand import kernel as ek
+    from repro_torch.kernels.knn_topk import kernel as kk
     from repro_torch.kernels.sorted_lookup import kernel as sk
     fns = {"searchsorted_left_ranged": (sk.searchsorted_left_ranged,
                                         sk.searchsorted_left_ranged_plain),
            "expand": (ek.expand, ek.expand_plain),
            "dedup_compact_rows": (dk.dedup_compact_rows,
                                   dk.dedup_compact_rows_plain),
-           "sort_rows": (dk.sort_rows, dk.sort_rows_plain)}
+           "sort_rows": (dk.sort_rows, dk.sort_rows_plain),
+           "sort_pairs": (dk.sort_pairs, dk.sort_pairs_plain),
+           "knn_topk": (kk.knn_topk, kk.knn_topk_plain)}
+    # the kernels each path must have launched: its own, and the earlier
+    # slices' kernels that serve it too
+    for path, names in (("shared", ("sort_pairs", "expand",
+                                    "searchsorted_left_ranged")),
+                        ("nearest", ("knn_topk", "dedup_compact_rows")),
+                        ("nearest_shared", ("knn_topk", "sort_pairs"))):
+        for name in names:
+            check(launches[path][name] > 0,
+                  f"{name} was not launched on the {path} path")
     rows = []
     for name, (src, replaces) in KERNELS.items():
-        check(launches[name] > 0, f"{name} was not launched on the main path")
+        n_path = launches[PATH_OF[name]][name]
+        check(n_path > 0, f"{name} was not launched on the main path")
         check(name in best, f"{name}: no main-path inputs recorded")
         _, args, kw = best[name]
         kern, plain = fns[name]
         out = kern(*args, **kw)
         ref = plain(*args, **kw)
         torch.cuda.synchronize()
-        _exact(out, ref, f"{name} at main-path inputs")
-        err = max(int((o.long() - r.long()).abs().max()) if o.numel() else 0
-                  for o, r in zip(_tensors([out]), _tensors([ref])))
+        out_t, ref_t = list(_tensors([out])), list(_tensors([ref]))
+        _exact(_bits(out_t), _bits(ref_t), f"{name} at main-path inputs")
+        err = max(float((o.double() - r.double()).abs().nan_to_num(0).max())
+                  if o.numel() else 0.0 for o, r in zip(out_t, ref_t))
         lib = None
         if name == "sort_rows":
             lib = lambda: torch.sort(args[0], dim=1)
+        elif name == "sort_pairs":
+            packed = dref.pack_pairs(*args)
+            lib = lambda: torch.sort(packed)
         elif name == "searchsorted_left_ranged":
             keys, q, lo, hi = args
             if bool((lo == lo[0]).all()) and bool((hi == hi[0]).all()):
@@ -618,7 +1035,9 @@ def phase_kernel_report(launches, best):
         shapes = [tuple(a.shape) for a in _tensors(args)][:3]
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=int(launches[name]), max_abs_err=err,
+            launches=sum(int(n[name]) for n in launches.values()),
+            launches_by_path={p: int(n[name]) for p, n in launches.items()},
+            max_abs_err=err,
             ms=_events_ms(lambda: kern(*args, **kw)),
             plain_ms=_events_ms(lambda: plain(*args, **kw), n=5),
             bound_ms=bound_ms, bound_by=bound_by,
@@ -633,8 +1052,8 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
     ap.add_argument("--rehearse", action="store_true",
-                    help="without a GPU: phases 4-5 at a tiny size on the "
-                         "CPU, then exit 1")
+                    help="without a GPU: phases 4-7 and 9 at a tiny size on "
+                         "the CPU, then exit 1")
     args = ap.parse_args(argv)
     import torch
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -646,7 +1065,11 @@ def main(argv=None) -> int:
         dev = torch.device("cpu")
         kg = phase_load(dev, KG_REHEARSE, dict(A1_SHARD, cap_v=20_000,
                                                cap_e=80_000, cap_idx=20_000))
-        phase_serve(kg, dev, 1, dict(A1_CAPS, frontier=256, expand=1024))
+        caps = dict(A1_CAPS, frontier=256, expand=1024)
+        launches = {}
+        batches, results, peak = phase_serve(kg, dev, 1, launches, caps)
+        phase_serve_shared(kg, dev, batches, results, peak, launches, caps)
+        phase_nearest(dev, NEAREST_REHEARSE, 1, launches, caps)
         phase_small_reference(dev)
         print("chip_smoke: CPU rehearsal finished; no GPU result",
               file=sys.stderr)
@@ -658,9 +1081,15 @@ def main(argv=None) -> int:
     phase_kernel_checks()
     if not args.quick:
         kg = phase_load(dev, KG_FULL, A1_SHARD)
-        launches, best = phase_serve(kg, dev, BATCHES)
-        phase_kernel_report(launches, best)
-        del kg
+        rec = Recorder()
+        launches = {}
+        batches, results, peak = phase_serve(kg, dev, BATCHES, launches)
+        phase_serve_shared(kg, dev, batches, results, peak, launches)
+        del kg, batches, results
+        torch.cuda.empty_cache()
+        phase_nearest(dev, NEAREST_FULL, BATCHES, launches)
+        rec.restore()
+        phase_kernel_report(launches, rec.best)
         phase_small_reference(dev)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

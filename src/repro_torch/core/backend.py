@@ -1,15 +1,16 @@
 """Backend dispatch for the read hot path (edge enumeration, index probes,
-per-hop compaction).
+per-hop compaction, the shared frontier's pair sort, the k-NN probe).
 
 Port of ``repro/core/backend.py``: the seam between the semantics layer
 (``core/edges.py``, ``core/index.py``, ``core/query/planner.py``) and the
 hand-written kernels under ``repro_torch.kernels``.
 
   * ``kind="ref"``    — the JAX package's reference path in plain PyTorch
-    (library sorts and searches, the direct dense edge expansion).  Defines
-    the semantics.
+    (library sorts and searches, the direct dense edge expansion, the plain
+    k-NN).  Defines the semantics.
   * ``kind="kernel"`` — the kernel path (tile plan -> ``edge_expand`` ->
-    scatter, ``sorted_lookup``, ``dedup_compact``).  On CUDA tensors every
+    scatter, ``sorted_lookup``, ``dedup_compact``, ``sort_pairs``,
+    ``knn_topk``).  On CUDA tensors every
     kernel wrapper launches its CUDA kernel or raises; on CPU tensors it runs
     that kernel's plain PyTorch version, as Pallas runs in interpret mode on
     a CPU, so the CPU tests cover the tile plans and scatters too.
@@ -31,6 +32,8 @@ from repro_torch.kernels.dedup_compact import kernel as _dedup_kernel
 from repro_torch.kernels.dedup_compact import ref as _dedup_ref
 from repro_torch.kernels.edge_expand import kernel as _expand_kernel
 from repro_torch.kernels.edge_expand import ref as _expand_ref
+from repro_torch.kernels.knn_topk import kernel as _knn_kernel
+from repro_torch.kernels.knn_topk import ref as _knn_ref
 from repro_torch.kernels.sorted_lookup import kernel as _lookup_kernel
 
 _VALID = ("ref", "kernel", "auto")
@@ -95,6 +98,16 @@ def searchsorted_blocked(keys, queries, lo, *, block: int, backend: Backend):
     return pos.gather(0, (lo // block).long()[None, :])[0]
 
 
+def searchsorted_ranged(keys, queries, lo, hi, *, backend: Backend):
+    """Per-query windowed probe: ``count(keys[lo:hi] < q)`` for each query,
+    ``keys`` sorted within each query's window (the shared frontier's
+    per-segment runs)."""
+    if backend.is_kernel:
+        return _lookup_kernel.searchsorted_left_ranged(keys, queries, lo, hi)
+    return _lookup_kernel.searchsorted_left_ranged_plain(keys, queries, lo,
+                                                         hi)
+
+
 def sort_rows(x, *, backend: Backend):
     """Row-wise ascending sort of an (R, W) i32 matrix."""
     if backend.is_kernel:
@@ -109,3 +122,23 @@ def dedup_compact_rows(x, cap: int, *, backend: Backend):
     if backend.is_kernel:
         return _dedup_kernel.dedup_compact_rows(x, cap)
     return _dedup_ref.dedup_compact_rows(x, cap)
+
+
+def sort_pairs(k1, k2, *, backend: Backend):
+    """Lexicographic ascending sort of flat (k1, k2) i32 pairs (the shared
+    frontier's one compaction sort per hop)."""
+    if backend.is_kernel:
+        return _dedup_kernel.sort_pairs(k1, k2)
+    return _dedup_ref.sort_pairs(k1, k2)
+
+
+def knn_topk(vecs, emb, gid, vtype, create, delete, q_vt, q_ts, k: int, *,
+             backend: Backend):
+    """Squared-L2 surrogate distance and per-query top-k over the vector
+    index (the ``Nearest`` probe wave): entries filtered by type and MVCC
+    visibility per query, ties broken by ascending gid, empty slots
+    ``(+inf, INT32_MAX)``.  Both kinds agree bit for bit."""
+    args = (vecs, emb, gid, vtype, create, delete, q_vt, q_ts, k)
+    if backend.is_kernel:
+        return _knn_kernel.knn_topk(*args)
+    return _knn_ref.knn_topk(*args)

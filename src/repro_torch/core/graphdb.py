@@ -5,7 +5,8 @@ the coordinator: it owns the catalog, the global clock and the delta-fill
 mirrors, and drives device work for everything data-touching.  This slice
 has no write methods: a store comes from :meth:`GraphDB.from_numpy` (state
 carried across from elsewhere) or from the loader in
-:mod:`repro_torch.data.kg`.
+:mod:`repro_torch.data.kg`; :meth:`GraphDB.vector_index` registers a vertex
+type for ``Nearest`` queries and backfills its index entries.
 
 Every database lives on one device, ``cuda`` unless the caller names
 another; without a GPU the default raises instead of carrying on on the CPU.
@@ -74,7 +75,9 @@ class GraphDB:
         self.dl_count = np.zeros(S, np.int64)        # delta-log fill mirrors
         self.il_count = np.zeros(S, np.int64)
         self.xd_count = np.zeros(S, np.int64)
-        self._vindexed: set[int] = set()             # no vector index yet
+        self.vx_count = np.zeros(S, np.int64)        # vector-index fill mirror
+        self._vindexed: set[int] = set()             # vector-indexed type_ids
+        self._vx_pos: dict[int, tuple[int, int]] = {}  # gid -> (pos, type_id)
         self.active_query_ts: list[int] = []         # pins for GC (§2.2)
 
     @classmethod
@@ -86,7 +89,10 @@ class GraphDB:
         ``schema`` lists ``(kind, name, f_attrs, i_attrs)`` in creation order
         (kind ``"v"`` or ``"e"``), so type ids come out the same;
         ``counters`` holds the host mirrors ``clock``, ``dl_count``,
-        ``il_count``, ``xd_count`` and ``v_next``."""
+        ``il_count``, ``xd_count`` and ``v_next``, and, where the store holds
+        a vector index, ``vx_count``, ``vx_pos`` (gid -> (position,
+        type_id)) and ``vindexed`` (the registered type ids), so the index
+        carries across without a second backfill."""
         dev = resolve_device(device)
         db = cls(cfg, backend=backend, device=dev,
                  store=store_from_numpy(cfg, store_arrays, dev))
@@ -98,6 +104,11 @@ class GraphDB:
         db.clock = int(counters["clock"])
         for k in ("dl_count", "il_count", "xd_count", "v_next"):
             setattr(db, k, np.asarray(counters[k], np.int64).copy())
+        if "vx_count" in counters:
+            db.vx_count = np.asarray(counters["vx_count"], np.int64).copy()
+        db._vx_pos = {int(g): (int(p), int(t)) for g, (p, t) in
+                      counters.get("vx_pos", {}).items()}
+        db._vindexed = {int(t) for t in counters.get("vindexed", ())}
         return db
 
     # ------------------------------------------------------------------
@@ -113,6 +124,13 @@ class GraphDB:
 
     def vt(self, name: str) -> VertexType:
         return self.catalog.proxy(self.tenant, self.graph, "v", name)
+
+    def vector_index(self, name: str) -> VertexType:
+        """Register a vertex type for ``Nearest`` queries (``core/vindex``):
+        its f32 payload row becomes its embedding, and the vertices alive
+        now are backfilled."""
+        from repro_torch.core import vindex as vindex_mod
+        return vindex_mod.register(self, name)
 
     def et(self, name: str) -> EdgeType:
         return self.catalog.proxy(self.tenant, self.graph, "e", name)

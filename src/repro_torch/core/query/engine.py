@@ -13,8 +13,11 @@ routing is internal:
     ``fused=True`` forces that path (per-query ``failed_q`` flags even for a
     uniform batch, as the serving tier calls it); ``fused=False`` forbids it.
 
-``mesh=`` (SPMD) and ``budget="shared"`` (the shared frontier) belong to
-later slices of the port and raise ``NotImplementedError``.
+``budget="shared"`` pools every live query's frontier into one shared
+pool (``planner_shared``) and always runs fused; ``Nearest``-rooted plans
+exist only as fused k-NN probe waves, so they run fused too.  ``mesh=``
+(SPMD) belongs to a later slice of the port and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -83,10 +86,6 @@ def execute(db, queries: list[dict], *, caps: Optional[QueryCaps] = None,
     if budget not in (None, "per-query", "shared"):
         raise ValueError(f"budget must be 'per-query' or 'shared', "
                          f"got {budget!r}")
-    if budget == "shared":
-        raise NotImplementedError(
-            "budget='shared' (the shared frontier, planner_shared) is a later "
-            "slice of the PyTorch port: ROADMAP queue 1, item 6")
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (the SPMD executors) is a later slice of the PyTorch "
@@ -99,21 +98,26 @@ def execute(db, queries: list[dict], *, caps: Optional[QueryCaps] = None,
     eff_caps = [lo.hints.apply(caps) for lo in lowered]
     cursors = [lo.cursor for lo in lowered]
     any_cursor = any(c >= 0 for c in cursors)
-    if any(p.nearest_k > 0 for lo in lowered for p in lo.plan.chain_units()):
-        raise NotImplementedError(
-            "Nearest (k-NN probe) queries are a later slice of the PyTorch "
-            "port: ROADMAP queue 1, item 8")
+    # Nearest-rooted plans exist only as fused probe-wave rows (the
+    # per-plan executor has no k-NN wave)
+    any_nearest = any(p.nearest_k > 0 for lo in lowered
+                      for p in lo.plan.chain_units())
     uniform = (all(lo.plan == lowered[0].plan for lo in lowered[1:])
                and all(c == eff_caps[0] for c in eff_caps[1:])
                and len(set(ts_list)) == 1
-               and not any_cursor)
+               and not any_cursor
+               and not any_nearest)
     if fused is False and not uniform:
         raise ValueError("fused=False requires a uniform batch "
-                         "(one plan shape, caps, snapshot, no cursors)")
+                         "(one plan shape, caps, snapshot, no cursors, "
+                         "no nearest)")
+    if fused is False and budget == "shared":
+        raise ValueError("budget='shared' requires the fused planner")
     if fused is False and deadline is not None:
         raise ValueError("deadline= requires the fused planner (the "
                          "uniform executor has no per-group skip point)")
-    run_fused = bool(fused) or not uniform or deadline is not None
+    run_fused = (bool(fused) or not uniform or budget == "shared"
+                 or deadline is not None)
 
     pins = sorted(set(ts_list))
     for t in pins:                            # pin versions (GC barrier)
@@ -121,6 +125,7 @@ def execute(db, queries: list[dict], *, caps: Optional[QueryCaps] = None,
     try:
         if run_fused:
             return planner.execute_fused(db, lowered, eff_caps, ts_list, be,
+                                         budget=budget or "per-query",
                                          cursors=cursors, deadline=deadline)
         return _execute_uniform(db, lowered, eff_caps[0], ts_list[0], be)
     finally:

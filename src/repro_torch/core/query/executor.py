@@ -36,6 +36,12 @@ class QueryCaps:
     results: int = 64          # rows returned per query
     bucket: int = 256          # SPMD routing bucket (an A1QL hint; the
                                # SPMD executors are a later slice)
+    # shared-frontier mode only (GraphDB.query(..., budget="shared")):
+    # explicit shared-pool sizes; 0 = the planner's auto policy
+    # (per-cap * ceil(sqrt(units)) — see planner.shared_budget)
+    shared_frontier: int = 0
+    shared_expand: int = 0
+    shared_bucket: int = 0     # SPMD shared routing bucket (a later slice)
 
 
 @dataclasses.dataclass
@@ -47,6 +53,10 @@ class QueryResult:
     failed: bool = False                     # fast-fail (capacity overflow)
     failed_q: Optional[np.ndarray] = None    # (Q,) per-query fast-fail flags
                                              # (fused planner only)
+    shared_ovf_q: Optional[np.ndarray] = None  # (Q,) the subset of failed_q
+                                             # caused by the shared pools
+                                             # (budget="shared") rather than
+                                             # the query's own per-unit caps
     deadline_q: Optional[np.ndarray] = None  # (Q,) skipped by the deadline
 
 
@@ -145,8 +155,12 @@ def select_attrs(store: GraphStore, cfg: StoreConfig, rows_gid, read_ts,
         if kind == "key":
             vals = torch.where(present, store.vkey[r], _NULL)
         elif kind == "f32":
-            vals = torch.where(use_cur, store.vdata_f[r, colid],
-                               store.vprev_f[r, colid]) * present
+            # zero, not ``value * False``: that gives -0.0 for a negative
+            # value, where XLA (which folds the product to a select) and so
+            # the reference give +0.0
+            vals = torch.where(present, torch.where(
+                use_cur, store.vdata_f[r, colid], store.vprev_f[r, colid]),
+                0.0)
         else:
             vals = torch.where(use_cur, store.vdata_i[r, colid],
                                store.vprev_i[r, colid]) * present

@@ -5,7 +5,9 @@ plans — chains and star patterns — sharing a terminal signature and caps
 runs as one fused wave program over the R *chain units* (a chain is one
 unit, a star one unit per branch):
 
-  * lookup wave — every unit's start probe in one ``index.lookup`` call;
+  * lookup wave — every unit's start probe in one ``index.lookup`` call,
+    and for ``Nearest``-rooted units one k-NN probe (``knn_topk``) over the
+    vector index, whose seeds become the unit's first frontier;
   * hop wave k — every unit with a k-th hop expands its frontier region in
     one tile plan per direction; per-unit edge types and snapshots are
     vectors; finished units are parked and ride along;
@@ -14,9 +16,10 @@ unit, a star one unit per branch):
 
 The frontier is an (R, frontier) matrix whose row r holds unit r's
 sorted-unique gids, so every query keeps its own §3.4 budget and snapshot
-and its results (fast-fail flags included) equal a solo run.  The SPMD
-programs, the k-NN probe wave and the shared-frontier budget are later
-slices of the port.
+and its results (fast-fail flags included) equal a solo run.
+``budget="shared"`` runs the flat shared-pool programs of
+:mod:`repro_torch.core.query.planner_shared` instead; grouping, caching and
+the assembly are shared.  The SPMD programs are a later slice of the port.
 """
 from __future__ import annotations
 
@@ -282,6 +285,41 @@ def _pow2ceil(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
 
+# peak frontier footprint (bytes) of the programs executed so far, per
+# budget mode — the memory claim of the shared-frontier mode
+FRONTIER_STATS = {"per_query_peak_bytes": 0, "shared_peak_bytes": 0}
+
+# running overflow tallies across every fused dispatch: how many query slots
+# fast-failed at all, how many of those the *shared* pools evicted rather
+# than their own per-unit budget, and how many a deadline skipped
+OVERFLOW_STATS = {"failed_queries": 0, "shared_ovf_queries": 0,
+                  "deadline_skipped_queries": 0}
+
+
+def reset_stats() -> None:
+    """Zero the observability counters (not the program cache): they are
+    process-global, so a fresh database or benchmark run resets them."""
+    for d in (FRONTIER_STATS, OVERFLOW_STATS):
+        for k in d:
+            d[k] = 0
+
+
+def _ceil_sqrt(n: int) -> int:
+    import math
+    return math.isqrt(max(0, int(n) - 1)) + 1
+
+
+def shared_budget(n_units: int, per_cap: int, explicit: int = 0) -> int:
+    """The shared-capacity policy: ``per_cap * ceil(sqrt(R))``, at least R
+    (one slot a unit) and at most ``R * per_cap`` (never more than the
+    per-query footprint).  ``explicit`` (``QueryCaps.shared_*``) overrides
+    the policy, clamped to the per-query footprint."""
+    r = max(1, int(n_units))
+    if explicit:
+        return min(int(explicit), r * per_cap)
+    return min(r * per_cap, max(per_cap * _ceil_sqrt(r), r))
+
+
 def delta_window(db) -> int:
     """Static per-shard edge-delta-log window for the next fused program:
     the delta logs fill prefix-first per shard (host count mirrors are
@@ -298,30 +336,55 @@ def index_window(db) -> int:
     return min(_pow2ceil(n), db.cfg.cap_idx_delta)
 
 
+def _nearest_tables(chains, F: int):
+    """Static k-NN probe tables: per-unit k (0 = scan-rooted), whether any
+    unit is Nearest-rooted, the batch KMAX, and the ``k <= frontier``
+    check."""
+    kvec = np.array([c.nearest_k for c in chains], np.int32)
+    has_nearest = bool((kvec > 0).any())
+    kmax = int(kvec.max()) if has_nearest else 0
+    if kmax > F:
+        raise ValueError(f"nearest k={kmax} exceeds the frontier cap {F}; "
+                         "raise caps.frontier (or the 'frontier' hint)")
+    return kvec, has_nearest, kmax
+
+
+def _cache_get(key):
+    fn = _CACHE.get(key)
+    if fn is not None:
+        _CACHE.move_to_end(key)
+    return fn
+
+
+def _cache_put(key, fn) -> None:
+    _CACHE[key] = fn
+    while len(_CACHE) > CACHE_MAX_PROGRAMS:
+        _CACHE.popitem(last=False)
+
+
 def compile_batch(cfg: StoreConfig, plans: tuple, caps: QueryCaps,
                   backend: backend_mod.Backend = backend_mod.REF,
                   dwin: Optional[int] = None, xwin: Optional[int] = None,
-                  device="cpu"):
+                  vwin: Optional[int] = None, device="cpu"):
     """The fused-wave program for one batch shape:
-    ``run(store, keys, valid_in, ts_q, cur_q)``.
+    ``run(store, keys, vecs, valid_in, ts_q, cur_q)``.
 
     ``plans`` is a tuple of logical plans (chains and/or stars) sharing a
     terminal signature; start keys (one per chain unit, branch-major per
     query), per-query snapshots and gid cursors stay runtime tensors.
-    ``dwin``/``xwin`` are the edge / primary-index delta windows."""
+    ``dwin``/``xwin`` are the edge / primary-index delta windows; ``vwin``
+    is the vector-index window (``vindex.vindex_window``), used only when a
+    unit is ``Nearest``-rooted: ``vecs`` then holds one (d_f32,) query
+    vector per unit (zeros for scan-rooted units), else it is ``None``."""
+    from repro_torch.core import vindex as vindex_mod
+
     dwin = cfg.cap_delta if dwin is None else min(dwin, cfg.cap_delta)
     device = torch.device(device)
-    key = (cfg, plans, caps, len(plans), backend, dwin, xwin, str(device),
-           "local")
-    fn = _CACHE.get(key)
+    key = (cfg, plans, caps, len(plans), backend, dwin, xwin, vwin,
+           str(device), "local")
+    fn = _cache_get(key)
     if fn is not None:
-        _CACHE.move_to_end(key)
         return fn
-    for p in plans:
-        if any(c.nearest_k > 0 for c in p.chain_units()):
-            raise NotImplementedError(
-                "Nearest (k-NN probe) plans are a later slice of the port "
-                "(ROADMAP queue 1, item 8)")
 
     Q = len(plans)
     F, E, K = caps.frontier, caps.expand, caps.results
@@ -350,16 +413,41 @@ def compile_batch(cfg: StoreConfig, plans: tuple, caps: QueryCaps,
     final_preds = dev_preds(_final_pred_groups(plans))
     no_tvt = torch.full((Q,), -1, dtype=torch.int32, device=device)
     d_shard = torch.arange(S * dwin, dtype=torch.int32, device=device) // dwin
+    kvec_np, has_nearest, KMAX = _nearest_tables(chains, F)
+    vw = (min(cfg.cap_vec if vwin is None else vwin, cfg.cap_vec)
+          if has_nearest else 0)
+    nmask = dev_t(kvec_np > 0)
+    kvec = dev_t(kvec_np, torch.int32)
+    colk = torch.arange(KMAX, dtype=torch.int32, device=device)[None, :]
 
-    def run(store, keys, valid_in, ts_q, cur_q):
+    def run(store, keys, vecs, valid_in, ts_q, cur_q):
         ts_r = ts_q[row2q]                                  # (R,) per unit
         failed_r = torch.zeros((R,), dtype=torch.bool, device=device)
         # ---- lookup wave: one probe for every chain unit ------------------
-        gids0, found = index_mod.lookup(store, cfg, start_vt, keys, valid_in,
+        # Nearest-rooted units skip the primary index; their seeds come from
+        # the k-NN probe below
+        look_ok = valid_in & ~nmask if has_nearest else valid_in
+        gids0, found = index_mod.lookup(store, cfg, start_vt, keys, look_ok,
                                         ts_r, backend=backend, xd_win=xwin)
-        g = torch.full((R, F), PAD, dtype=torch.int32, device=device)
-        g[:, 0] = torch.where(found & valid_in, gids0, PAD)
-        valid = g != PAD
+        scan_col = torch.where(found & look_ok, gids0, PAD)
+        if has_nearest:
+            # ---- k-NN probe wave: one distance + top-KMAX pass over the
+            # windowed index; per-unit k masks columns of the shared result,
+            # and the dedup lays the seeds out sorted-unique (ties are
+            # already gid-ordered by the kernel)
+            vx = vindex_mod.window_arrays(store, cfg, vw)
+            _, knn_g = backend_mod.knn_topk(vecs, vx[4], *vx[:4], start_vt,
+                                            ts_r, KMAX, backend=backend)
+            seeds_ok = (nmask[:, None] & (colk < kvec[:, None])
+                        & (knn_g != I32MAX) & valid_in[:, None])
+            cand = torch.cat([scan_col[:, None],
+                              torch.where(seeds_ok, knn_g, PAD)], dim=1)
+            g, valid, ovf = _dedup_rows(cand, cand != PAD, F, backend)
+            failed_r = failed_r | ovf
+        else:
+            g = torch.full((R, F), PAD, dtype=torch.int32, device=device)
+            g[:, 0] = scan_col
+            valid = g != PAD
 
         for wave in waves:
             act = wave["act"]
@@ -419,9 +507,7 @@ def compile_batch(cfg: StoreConfig, plans: tuple, caps: QueryCaps,
             out.update(rows_gid=rows_gid, attrs=attrs, truncated=trunc)
         return out
 
-    _CACHE[key] = run
-    while len(_CACHE) > CACHE_MAX_PROGRAMS:
-        _CACHE.popitem(last=False)
+    _cache_put(key, run)
     return run
 
 
@@ -439,6 +525,9 @@ class _Assembly:
     def __init__(self, Q: int, K: int):
         self.Q, self.K = Q, K
         self.failed_q = np.zeros(Q, bool)
+        # per-query "the shared pool did it" flags: zero for per-query-
+        # budget groups, whose failures are always their own
+        self.shared_ovf_q = np.zeros(Q, bool)
         self.deadline_q = np.zeros(Q, bool)
         self.counts = None
         self.rows_gid = None
@@ -452,6 +541,8 @@ class _Assembly:
 
     def put(self, idxs, out: dict) -> None:
         self.failed_q[idxs] = _np(out["failed_q"])
+        if "shared_q" in out:
+            self.shared_ovf_q[idxs] = _np(out["shared_q"])
         if "counts" in out:
             if self.counts is None:
                 self.counts = np.full(self.Q, _NULL, np.int32)
@@ -476,11 +567,15 @@ class _Assembly:
             self.truncated[idxs] = True
 
     def result(self) -> QueryResult:
+        OVERFLOW_STATS["failed_queries"] += int(self.failed_q.sum())
+        OVERFLOW_STATS["shared_ovf_queries"] += int(self.shared_ovf_q.sum())
+        OVERFLOW_STATS["deadline_skipped_queries"] += int(
+            self.deadline_q.sum())
         return QueryResult(
             counts=self.counts, rows_gid=self.rows_gid,
             rows=self.rows or None, truncated=self.truncated,
             failed=bool(self.failed_q.any()), failed_q=self.failed_q,
-            deadline_q=self.deadline_q)
+            shared_ovf_q=self.shared_ovf_q, deadline_q=self.deadline_q)
 
 
 def _fusion_groups(lowered, eff_caps):
@@ -496,22 +591,36 @@ def _fusion_groups(lowered, eff_caps):
             for key, idxs in groups.items()]
 
 
+def _has_nearest(plans) -> bool:
+    return any(c.nearest_k > 0 for p in plans for c in p.chain_units())
+
+
 def execute_fused(db, lowered: list, eff_caps: list, ts_list: list[int],
-                  be: backend_mod.Backend,
+                  be: backend_mod.Backend, budget: str = "per-query",
                   cursors: Optional[Sequence[int]] = None,
                   deadline: Optional[float] = None) -> QueryResult:
-    """Run pre-lowered plans as fused multi-query waves with per-query
-    budgets (``budget="per-query"``): results, with per-query ``failed_q``
-    flags, equal running each query alone.  ``cursors`` is the per-query
-    gid cursor (-1 = none); ``deadline`` is an absolute
+    """Run pre-lowered plans as fused multi-query waves.
+
+    With ``budget="per-query"`` every query keeps its own §3.4 budget and
+    snapshot, and its results (``failed_q`` flags included) equal running it
+    alone.  ``budget="shared"`` runs the shared-frontier programs
+    (``planner_shared``): one flat (seg, gid) pool per group with an
+    O(F*sqrt(R)) capacity; results can differ from per-query mode only via
+    fast-fail flags under shared overflow (``shared_ovf_q``).  ``cursors``
+    is the per-query gid cursor (-1 = none); ``deadline`` is an absolute
     ``time.monotonic()`` instant past which a group is skipped and flagged
     ``deadline_q``."""
+    from repro_torch.core import vindex as vindex_mod
+    from repro_torch.core.query import planner_shared
     Q = len(lowered)
     dev = db.device
     out = _Assembly(Q, max(c.results for c in eff_caps))
     dwin = delta_window(db)
     xwin = index_window(db)
     cursors = [-1] * Q if cursors is None else list(cursors)
+    # the vector-index window only enters the cache key of Nearest groups
+    vwin = (vindex_mod.vindex_window(db)
+            if _has_nearest(lo.plan for lo in lowered) else None)
     for caps_g, idxs in _fusion_groups(lowered, eff_caps):
         plans_g = tuple(lowered[i].plan for i in idxs)
         if deadline is not None and time.monotonic() >= deadline:
@@ -523,7 +632,31 @@ def execute_fused(db, lowered: list, eff_caps: list, ts_list: list[int],
                           device=dev)
         cur = torch.tensor([cursors[i] for i in idxs], dtype=torch.int32,
                            device=dev)
-        fn = compile_batch(db.cfg, plans_g, caps_g, be, dwin, xwin, dev)
-        valid = torch.ones((keys.shape[0],), dtype=torch.bool, device=dev)
-        out.put(idxs, fn(db.store, keys, valid, ts, cur))
+        R = keys.shape[0]
+        vecs, vw_g = None, None
+        if _has_nearest(plans_g):
+            # (R, d_f32) query vectors, unit-major parallel to ``keys``
+            # (zeros for scan-rooted units: their k-NN columns are masked)
+            vw_g = vwin
+            zero = (0.0,) * db.cfg.d_f32
+            vrows = []
+            for i in idxs:
+                n_units = len(lowered[i].plan.chain_units())
+                lv = lowered[i].vecs or (None,) * n_units
+                vrows += [zero if v is None else v for v in lv]
+            vecs = torch.tensor(np.asarray(vrows, np.float32), device=dev)
+        if budget == "shared":
+            FS = shared_budget(R, caps_g.frontier, caps_g.shared_frontier)
+            FRONTIER_STATS["shared_peak_bytes"] = max(
+                FRONTIER_STATS["shared_peak_bytes"], 2 * 4 * FS)
+            fn = planner_shared.compile_batch_shared(
+                db.cfg, plans_g, caps_g, be, dwin, xwin, vw_g, dev)
+        else:
+            FRONTIER_STATS["per_query_peak_bytes"] = max(
+                FRONTIER_STATS["per_query_peak_bytes"],
+                4 * R * caps_g.frontier)
+            fn = compile_batch(db.cfg, plans_g, caps_g, be, dwin, xwin, vw_g,
+                               dev)
+        valid = torch.ones((R,), dtype=torch.bool, device=dev)
+        out.put(idxs, fn(db.store, keys, vecs, valid, ts, cur))
     return out.result()

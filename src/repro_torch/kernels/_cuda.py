@@ -10,7 +10,9 @@ several sources in parallel, one ``nvcc`` each.
 Every C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``;
 :func:`check` raises if that is not 0.  ``LAUNCHES`` counts, per wrapper,
-the kernel launches made — a wrapper adds one exactly where it launches.
+the calls that launched its kernel (a call of ``sort_pairs`` or
+``knn_topk`` runs a short sequence of launches and counts once) — a wrapper
+adds one exactly where it launches.
 """
 from __future__ import annotations
 
@@ -24,12 +26,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("sorted_lookup", "edge_expand", "dedup_compact")
+SOURCES = ("sorted_lookup", "edge_expand", "dedup_compact", "sort_pairs",
+           "knn_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"searchsorted_left_ranged": 0, "expand": 0,
-            "dedup_compact_rows": 0, "sort_rows": 0}
+            "dedup_compact_rows": 0, "sort_rows": 0, "sort_pairs": 0,
+            "knn_topk": 0}
 
 _LIBS: dict = {}
 _FUNCS: dict = {}

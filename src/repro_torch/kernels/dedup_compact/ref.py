@@ -2,7 +2,8 @@
 
 Port of ``repro/kernels/dedup_compact/ref.py``: a library sort, then the
 first-of-run mask and a scatter.  ``PAD`` (INT32_MAX) marks an invalid slot
-and sorts last, so compacted rows stay ascending.
+and sorts last, so compacted rows stay ascending.  :func:`sort_pairs` is the
+shared frontier's flat (seg, gid) pair sort.
 """
 import torch
 
@@ -12,6 +13,23 @@ PAD = 2**31 - 1
 def sort_rows(x):
     """Row-wise ascending sort of an (R, W) i32 matrix."""
     return torch.sort(x, dim=1).values
+
+
+def pack_pairs(k1, k2):
+    """One int64 per (k1, k2) int32 pair whose signed order is the pairs'
+    lexicographic order: k1 in the high word, k2 biased by 2**31 into the
+    low word.  The ghost pair (PAD, PAD) packs to the largest int64."""
+    return (k1.long() << 32) + (k2.long() + 2**31)
+
+
+def unpack_pairs(key):
+    return ((key >> 32).to(torch.int32),
+            ((key & 0xFFFFFFFF) - 2**31).to(torch.int32))
+
+
+def sort_pairs(k1, k2):
+    """Lexicographic ascending sort of flat (k1, k2) i32 pairs."""
+    return unpack_pairs(torch.sort(pack_pairs(k1, k2)).values)
 
 
 def dedup_compact_rows(x, cap: int):

@@ -1,10 +1,12 @@
 """PyTorch port, kernel layer: each plain version (what a kernel wrapper runs
 on CPU tensors) against the JAX Pallas kernel in interpret mode and against
-the JAX ``ref.py`` oracle, on seeded numpy inputs.  Every output is an
-integer, so every comparison is exact.  The JAX side runs under ``jax.jit``
-(one compile per shape instead of one per eager op).  The CUDA kernels
-themselves run only on the GPU, where ``chip_smoke.py`` holds each against
-its plain version.
+the JAX ``ref.py`` oracle, on seeded numpy inputs.  Integer outputs are
+compared exactly; ``knn_topk``'s distances follow the port's own summation
+order, so they agree with JAX's to rounding (the tolerance in
+:func:`assert_knn_close`).  The JAX side runs under ``jax.jit`` (one compile
+per shape instead of one per eager op).  The CUDA kernels themselves run
+only on the GPU, where ``chip_smoke.py`` holds each against its plain
+version.
 """
 import functools
 import pathlib
@@ -20,6 +22,8 @@ from repro.kernels.dedup_compact import kernel as jdk
 from repro.kernels.dedup_compact import ref as jdref
 from repro.kernels.edge_expand import kernel as jek
 from repro.kernels.edge_expand import ref as jeref
+from repro.kernels.knn_topk import kernel as jkk
+from repro.kernels.knn_topk import ref as jkref
 from repro.kernels.sorted_lookup import kernel as jsk
 from repro.kernels.sorted_lookup import ref as jsref
 from repro_torch.core import backend as backend_mod
@@ -27,6 +31,8 @@ from repro_torch.kernels.dedup_compact import kernel as dk
 from repro_torch.kernels.dedup_compact import ref as dref
 from repro_torch.kernels.edge_expand import kernel as ek
 from repro_torch.kernels.edge_expand import ref as eref
+from repro_torch.kernels.knn_topk import kernel as kk
+from repro_torch.kernels.knn_topk import ref as kref
 from repro_torch.kernels.sorted_lookup import kernel as sk
 
 from test_torch_store_index_edges import one_torch_thread  # noqa: F401
@@ -51,6 +57,10 @@ J_DEDUP_REF = _jit(jdref.dedup_compact_rows, "cap")
 J_DEDUP = _jit(jdk.dedup_compact_rows, "cap", block_r=2, interpret=True)
 J_SORT_REF = _jit(jdref.sort_rows)
 J_SORT = _jit(jdk.sort_rows, block_r=2, interpret=True)
+J_PAIRS_REF = _jit(jdref.sort_pairs)
+J_PAIRS = _jit(jdk.sort_pairs, interpret=True)
+J_KNN_REF = _jit(jkref.knn_topk, "k")
+J_KNN = _jit(jkk.knn_topk, "k", interpret=True)
 
 
 def _t(a):
@@ -158,6 +168,94 @@ def test_sort_rows_matches_pallas_and_ref(R, W, pallas):
     _eq(dref.sort_rows(_t(x)), want)
 
 
+@pytest.mark.parametrize("W,pallas", [(300, True), (1, False),
+                                      (4099, False)])
+def test_sort_pairs_matches_pallas_and_ref(W, pallas):
+    """Pairs with repeats, ghosts (R, PAD) and the int32 extremes: the
+    plain version (the kernel's network over packed keys) and the ref
+    backend's library sort, against the JAX ref and the Pallas kernel."""
+    rng = np.random.default_rng(W)
+    k1 = rng.integers(-3, 9, W).astype(np.int32)
+    k2 = rng.integers(-2**31, I32MAX, W, endpoint=True).astype(np.int32)
+    k2[::3] = rng.integers(0, 5, k2[::3].shape[0])
+    ghost = rng.random(W) < 0.3
+    k1[ghost], k2[ghost] = 9, I32MAX
+    k1[:2], k2[:2] = [-2**31, I32MAX][:W], [I32MAX, -2**31][:W]
+    got = dk.sort_pairs(_t(k1), _t(k2))
+    wants = [J_PAIRS_REF(jnp.asarray(k1), jnp.asarray(k2))]
+    if pallas:
+        wants.append(J_PAIRS(jnp.asarray(k1), jnp.asarray(k2)))
+    for w in wants:
+        for g, r, x in zip(got, dref.sort_pairs(_t(k1), _t(k2)), w):
+            _eq(g, x)
+            _eq(r, x)
+
+
+def _knn_inputs(R, N, D, seed, n_types=3, ts_hi=10):
+    """``tests/test_kernels.py``'s generator (duplicate gids, empty slots,
+    mixed types and MVCC intervals)."""
+    rng = np.random.default_rng(seed)
+    vecs = rng.normal(size=(R, D)).astype(np.float32)
+    emb = rng.normal(size=(N, D)).astype(np.float32)
+    gid = rng.integers(0, 4 * N, N).astype(np.int32)
+    gid[rng.random(N) < 0.2] = -1
+    vtype = rng.integers(0, n_types, N).astype(np.int32)
+    create = rng.integers(0, ts_hi, N).astype(np.int32)
+    delete = np.where(rng.random(N) < 0.3, create + rng.integers(1, ts_hi, N),
+                      I32MAX).astype(np.int32)
+    q_vt = rng.integers(0, n_types, R).astype(np.int32)
+    q_ts = rng.integers(0, ts_hi, R).astype(np.int32)
+    return vecs, emb, gid, vtype, create, delete, q_vt, q_ts
+
+
+def assert_knn_close(got, want):
+    """ROADMAP queue 3's rule: the same empty slots; distances within
+    rtol=1e-5, atol=1e-4; gids equal except where the two entries swapped
+    are within rtol=1e-5, atol=1e-5 of each other."""
+    gd, gg = (np.asarray(x) for x in got)
+    wd, wg = (np.asarray(x) for x in want)
+    empty = np.isinf(wd)
+    assert np.array_equal(np.isinf(gd), empty)
+    assert np.array_equal(gg[empty], wg[empty])
+    np.testing.assert_allclose(gd[~empty], wd[~empty], rtol=1e-5, atol=1e-4)
+    swap = gg != wg
+    assert np.allclose(gd[swap], wd[swap], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("R,N,D,k,seed,pallas", [
+    (1, 83, 12, 15, 4, True),           # the pinned case of queue 3
+    (4, 37, 5, 8, 1, False), (3, 5, 4, 16, 2, False),     # k > N: padding
+    (70, 300, 8, 1, 3, False)])         # rows past one row tile, k = 1
+def test_knn_topk_matches_pallas_and_ref(R, N, D, k, seed, pallas):
+    args = _knn_inputs(R, N, D, seed)
+    got = kk.knn_topk(*map(torch.as_tensor, args), k)
+    wants = [J_KNN_REF(*map(jnp.asarray, args), k=k)]
+    if pallas:
+        wants.append(J_KNN(*map(jnp.asarray, args), k=k))
+    for want in wants:
+        assert_knn_close(got, want)
+    # the ref backend runs the same plain version
+    ref = kref.knn_topk(*map(torch.as_tensor, args), k)
+    assert torch.equal(ref[0].view(torch.int32), got[0].view(torch.int32))
+    assert torch.equal(ref[1], got[1])
+
+
+@pytest.mark.parametrize("R,N,D,k", [(64, 4_194_304, 32, 8), (1, 1, 1, 1),
+                                     (128, 100_003, 32, 4096), (3, 0, 4, 2)])
+def test_knn_plan_covers_the_index(R, N, D, k):
+    """The kernel's cut of a call: chunks that cover the index in whole
+    tiles, row tiles and merge groups within shared memory."""
+    pl = kk.plan(R, N, D, k)
+    assert pl["chunk"] % kk.TILE == 0
+    assert pl["n_chunks"] * pl["chunk"] >= N > (pl["n_chunks"] - 1) * \
+        pl["chunk"] or N == pl["n_chunks"] == 0
+    assert pl["smem"] <= kk.SMEM_MAX and pl["kp"] >= k
+    assert 1 <= pl["rt"] <= kk.MAX_ROWS and pl["group"] >= 2
+    assert 8 * pl["group"] * pl["kp"] <= kk.SMEM_MAX
+    with pytest.raises(ValueError):
+        kk.plan(R, N, D, kk.MAX_K + 1)
+
+
 def test_wrappers_take_cpu_or_cuda_only():
     """A wrapper runs the plain version only for CPU tensors; any other
     device must launch the CUDA kernel or raise, never fall back."""
@@ -171,6 +269,11 @@ def test_wrappers_take_cpu_or_cuda_only():
         sk.searchsorted_left_ranged(k, k, k, k)
     with pytest.raises(ValueError):
         dk.sort_rows(torch.zeros((2, 8), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        dk.sort_pairs(k, k)
+    v = torch.zeros((2, 4), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError):
+        kk.knn_topk(v, v, k[:2], k[:2], k[:2], k[:2], k[:2], k[:2], 1)
 
 
 def test_port_imports_neither_jax_nor_repro():

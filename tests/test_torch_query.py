@@ -182,11 +182,16 @@ def test_loader_store_counts_match_set_computation():
 
 
 def test_port_rejects_later_slices(dbs):
+    """Only ``mesh=`` (the SPMD executors) is still a later slice: the
+    shared frontier runs (``test_torch_shared``), and so does Nearest
+    (``test_torch_vector``)."""
     _, db = dbs["mutated"]
-    with pytest.raises(NotImplementedError, match="shared"):
-        db.query([q_chain(0)], budget="shared")
+    res = db.query([q_chain(0)], budget="shared")
+    assert res.counts is not None and res.shared_ovf_q is not None
     with pytest.raises(NotImplementedError, match="SPMD"):
         db.query([q_chain(0)], mesh=object())
+    with pytest.raises(NotImplementedError, match="SPMD"):
+        db.query([q_chain(0)], mesh=object(), budget="shared")
 
 
 def test_no_gpu_no_fallback():

@@ -51,7 +51,8 @@ def store_arrays(jst) -> dict:
 
 
 def carry(jdb, device="cpu") -> GraphDB:
-    """A port GraphDB over a JAX GraphDB's store, catalog and host mirrors."""
+    """A port GraphDB over a JAX GraphDB's store, catalog and host mirrors
+    (the vector index's included)."""
     g = jdb.catalog.tenants[jdb.tenant][jdb.graph]
     schema = [("v", vt.name,
                tuple(a.name for a in vt.attrs if a.kind == "f32"),
@@ -60,7 +61,8 @@ def carry(jdb, device="cpu") -> GraphDB:
     schema += [("e", et.name, (), ()) for et in g.etypes.values()]
     counters = dict(clock=jdb.clock, dl_count=jdb.dl_count,
                     il_count=jdb.il_count, xd_count=jdb.xd_count,
-                    v_next=jdb.v_next)
+                    v_next=jdb.v_next, vx_count=jdb.vx_count,
+                    vx_pos=jdb._vx_pos, vindexed=jdb._vindexed)
     return GraphDB.from_numpy(StoreConfig(**dataclasses.asdict(jdb.cfg)),
                               store_arrays(jdb.store), schema, counters,
                               device=device)
