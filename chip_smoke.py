@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's A1 read path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py            # the whole run (one GPU, ~5 minutes)
+    python3 chip_smoke.py            # the whole run (one GPU, ~10 minutes)
     python3 chip_smoke.py --quick    # build and check the kernels only
 
 Phases, each printed on its own line:
@@ -25,18 +25,25 @@ Phases, each printed on its own line:
      workload at one machine's size: 4 M vector-indexed docs) and batches of
      ``Nearest``-rooted queries in both budget modes, equal to
      ``backend="ref"``;
-  8. kernels — each kernel at the inputs the main path gave it: its
-     launches during phases 5-7, its time beside the plain version's, the
+  8. mesh4 — four a1-kg shards, each at one machine's full caps, side by
+     side on the card (``make_mesh(4)``), and phase 5's batch shapes through
+     ``GraphDB.query(mesh=...)`` (the SPMD query-shipping programs) in both
+     budget modes: equal to ``backend="ref"`` bit for bit, shared mode
+     holding its contract, and every query flagged by neither run equal to
+     the local path on the same store; the first two stores are freed first;
+  9. kernels — each kernel at the inputs the main path gave it: its
+     launches during phases 5-8, its time beside the plain version's, the
      bound and a library call, as one JSON line;
-  9. small reference — small stores against plain set computations and a
-     numpy k-NN in the kernels' summation order.
+ 10. small reference — small stores against plain set computations and a
+     numpy k-NN in the kernels' summation order, on one shard and on a
+     4-shard mesh.
 
-Each of phases 5-7 sets the kernels' launch counts to 0 just before its
-timed batches and reads them just after.  Any failed check raises, so the
-script exits non-zero.  The last line is ``{"ok": true, "device": {...}}``.
-Without a CUDA device it exits 1 before printing any result.  ``--rehearse``
-runs phases 4-7 and 9 at a tiny size on the CPU (plain kernel versions, no
-build) and then exits 1.
+Each of phases 5-8 sets the kernels' launch counts to 0 just before its
+timed batches (per budget mode) and reads them just after.  Any failed
+check raises, so the script exits non-zero.  The last line is ``{"ok":
+true, "device": {...}}``.  Without a CUDA device it exits 1 before printing
+any result.  ``--rehearse`` runs phases 4-8 and 10 at a tiny size on the CPU
+(plain kernel versions, no build) and then exits 1.
 """
 from __future__ import annotations
 
@@ -68,11 +75,22 @@ KG_REHEARSE = dict(n_films=3_000, n_actors=6_000, n_directors=500,
 NEAREST_FULL = dict(n_docs=4_194_304, d=32)
 NEAREST_REHEARSE = dict(n_docs=4_096, d=32)
 NEAREST_K = 8
+# mesh4: four a1-kg shards at one machine's caps each (4x the one-shard
+# graph), on one card; the bucket grows with the frontier a shard sends
+# each owner (a 4096-pair frontier sends ~16 pairs an owner at 256 shards,
+# ~1024 at 4)
+A1_MESH = dict(A1_SHARD, n_shards=4)
+A1_MESH_CAPS = dict(A1_CAPS, bucket=4096)
+KG_MESH = dict(n_films=14_000_000, n_actors=40_000_000,
+               n_directors=4_000_000, n_genres=64)
+MESH_REDUCED = ("n_shards 256 -> 4", "bucket 256 -> 4096")
 
 KERNELS = {   # wrapper -> (source, the TPU kernel's pallas_call it replaces)
     "searchsorted_left_ranged": (
         "src/repro_torch/csrc/sorted_lookup.cu",
         "src/repro/kernels/sorted_lookup/kernel.py:105"),
+    "searchsorted_left": ("src/repro_torch/csrc/sorted_lookup.cu",
+                          "src/repro/kernels/sorted_lookup/kernel.py:52"),
     "expand": ("src/repro_torch/csrc/edge_expand.cu",
                "src/repro/kernels/edge_expand/kernel.py:83"),
     "dedup_compact_rows": ("src/repro_torch/csrc/dedup_compact.cu",
@@ -85,10 +103,11 @@ KERNELS = {   # wrapper -> (source, the TPU kernel's pallas_call it replaces)
                  "src/repro/kernels/knn_topk/kernel.py:144"),
 }
 # the main path each kernel belongs to: phase 5's per-query serve, phase
-# 6's shared serve or phase 7's nearest serve
+# 6's shared serve, phase 7's nearest serve or phase 8's mesh serve
 PATH_OF = {"searchsorted_left_ranged": "per_query", "expand": "per_query",
            "dedup_compact_rows": "per_query", "sort_rows": "per_query",
-           "sort_pairs": "shared", "knn_topk": "nearest"}
+           "sort_pairs": "shared", "knn_topk": "nearest",
+           "searchsorted_left": "mesh"}
 
 
 def say(tag: str, **kw) -> None:
@@ -252,10 +271,41 @@ def phase_kernel_checks():
         raise AssertionError("a row wider than MAX_W was accepted")
     except ValueError:
         pass
+    n_cases += _check_searchsorted_left(rng, t)
     n_cases += _check_sort_pairs(rng, t)
     n_cases += _check_knn_topk(rng, t)
     torch.cuda.synchronize()
     say("KERNEL_CHECKS", cases=n_cases, equal=True)
+
+
+def _check_searchsorted_left(rng, t) -> int:
+    """searchsorted_left against its plain version and the library search:
+    duplicates, queries below and above every key, INT32_MAX queries and
+    pads, N not a power of two, N = 1, Q = 1, an empty index, and 16 M keys
+    (one shard's cap_idx)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.sorted_lookup import kernel as sk
+    cases = []
+    for n, q in ((1000, 999), (1, 1), (1, 50), (777, 1), (16_000_000, 4096)):
+        keys = np.sort(rng.integers(-2**31, I32MAX, n))
+        if n > 10:
+            keys[n // 3:n // 3 + n // 10] = keys[n // 3]     # duplicates
+            keys[-(n // 8):] = I32MAX                       # empty slots
+        qs = rng.integers(-2**31, I32MAX, q)
+        ext = [I32MAX, -2**31, int(keys[0]), int(keys[-1]), int(keys[0]) - 1]
+        qs[:min(q, 5)] = ext[:min(q, 5)]
+        cases.append((f"N={n} Q={q}", keys, qs))
+    cases.append(("empty index", np.full(4096, I32MAX),
+                  np.array([I32MAX, 0, -2**31])))
+    for what, keys, qs in cases:
+        k, q = t(keys), t(qs)
+        got = sk.searchsorted_left(k, q)
+        _exact(got, sk.searchsorted_left_plain(k, q),
+               f"searchsorted_left {what}")
+        _exact(got, torch.searchsorted(k, q, out_int32=True),
+               f"searchsorted_left {what} vs torch.searchsorted")
+    return len(cases)
 
 
 def _check_sort_pairs(rng, t) -> int:
@@ -361,13 +411,16 @@ class Recorder:
         self.best = {}
         self.mods = {"searchsorted_left_ranged": sk, "expand": ek,
                      "dedup_compact_rows": dk, "sort_rows": dk,
-                     "sort_pairs": dk, "knn_topk": kk}
+                     "sort_pairs": dk, "knn_topk": kk,
+                     "searchsorted_left": sk}
+        self.only = None          # record just these wrappers (None: all)
         self.orig = {n: getattr(m, n) for n, m in self.mods.items()}
         for name, mod in self.mods.items():
             setattr(mod, name, self._wrap(name, self.orig[name]))
 
     WORK = {"searchsorted_left_ranged":     # the index probe, not a delta
             lambda a, kw: a[0].numel() * a[1].numel(),
+            "searchsorted_left": lambda a, kw: a[0].numel() * a[1].numel(),
             "expand": lambda a, kw: kw["cap_tiles"],
             "dedup_compact_rows": lambda a, kw: a[0].numel(),
             "sort_rows": lambda a, kw: a[0].numel(),
@@ -376,9 +429,10 @@ class Recorder:
 
     def _wrap(self, name, fn):
         def rec(*args, **kw):
-            size = self.WORK[name](args, kw)
-            if size >= self.best.get(name, (-1,))[0]:
-                self.best[name] = (size, args, kw)
+            if self.only is None or name in self.only:
+                size = self.WORK[name](args, kw)
+                if size >= self.best.get(name, (-1,))[0]:
+                    self.best[name] = (size, args, kw)
             return fn(*args, **kw)
         return rec
 
@@ -396,7 +450,7 @@ def _tensors(args):
             yield from _tensors(a)
 
 
-def phase_load(dev, kg_sizes, cfg_kw):
+def phase_load(dev, kg_sizes, cfg_kw, reduced=("n_shards 256 -> 1",)):
     import torch
     from repro_torch.core.addressing import StoreConfig
     from repro_torch.data.kg import build_film_kg
@@ -412,7 +466,7 @@ def phase_load(dev, kg_sizes, cfg_kw):
         memory_allocated=(torch.cuda.memory_allocated() if dev.type == "cuda"
                           else None),
         vertices=n_v, edges=int(kg.edges["src"].shape[0]), config=cfg_kw,
-        reduced="n_shards 256 -> 1")
+        reduced="; ".join(reduced))
     return kg
 
 
@@ -656,12 +710,126 @@ def phase_serve_shared(kg, dev, batches, pq_results, pq_peak, launches,
                           budget="shared")
 
 
-def build_doc_store(dev, n_docs: int, d: int, seed: int = 7):
+def _agree_local(m, loc, what) -> int:
+    """A mesh result against the local path's on the same store: every
+    query flagged by neither run has the same count, and (where neither
+    run truncated it) the same set of select rows; mesh rows come
+    shard-major.  Returns how many queries were compared."""
+    import numpy as np
+    Q = len(m.counts if m.counts is not None else m.rows_gid)
+
+    def flags(r):
+        return r.failed_q if r.failed_q is not None else np.full(Q, r.failed)
+    ok = ~flags(m) & ~flags(loc)
+    if m.counts is not None:
+        check(np.array_equal(m.counts[ok], loc.counts[ok]),
+              f"{what}: unflagged counts differ from the local path")
+    else:
+        ok &= ~m.truncated & ~loc.truncated
+        for q in np.flatnonzero(ok):
+            check(sorted(m.rows_gid[q].tolist())
+                  == sorted(loc.rows_gid[q].tolist()),
+                  f"{what}: query {q}'s rows differ from the local path")
+    return int(ok.sum())
+
+
+def phase_mesh(kg, dev, n_batches: int, launches, caps_kw=A1_MESH_CAPS):
+    """The mesh4 cells: phase 5's batch shapes and key laws through
+    ``GraphDB.query(mesh=make_mesh(4))``, per-query (``fused=True``) and
+    ``budget="shared"``, timed; then a uniform count batch and a select
+    batch.  Every batch equals ``backend="ref"`` on the mesh, shared mode
+    holds its contract against per-query mesh mode, and unflagged queries
+    agree with the local path on the same 4-shard store."""
+    import numpy as np
+    import torch
+    from repro_torch.core import index
+    from repro_torch.core.query.executor import QueryCaps
+    from repro_torch.dist.mesh import make_mesh, shard_store
+    db = kg.db
+    mesh = make_mesh(db.cfg.n_shards, device=dev)
+    caps = QueryCaps(**caps_kw)
+    sorted_ok = index.blocks_sorted(db.store, db.cfg)
+    say("INDEX_SORTED", shards=sorted_ok)
+    check(all(sorted_ok), "an index block is not sorted: the binary "
+          "searches would not give count(keys < q)")
+    if dev.type == "cuda":
+        # each lookup wave recomputes a shard's probe keys from its index
+        # block, as the reference does
+        st = shard_store(db.store, db.cfg, mesh)[0]
+        say("MESH_COSTS", ix_h_ms_per_shard=_events_ms(lambda: torch.where(
+            st.ix_gid >= 0, index.mix32(st.ix_vtype, st.ix_key), I32MAX)))
+    rng = np.random.default_rng(6)
+    batches = [(f"mesh4/{c}", qs) for c, qs in _batches(kg, rng, n_batches,
+                                                          64)]
+    for kw in ({"fused": True}, {"budget": "shared"}):       # warm-up
+        db.query(batches[0][1], caps=caps, mesh=mesh, backend="kernel", **kw)
+    _sync(dev)
+    lat, results, peak = _timed(dev, [(c, db, qs) for c, qs in batches],
+                                launches, "mesh", caps=caps, mesh=mesh,
+                                fused=True)
+    lat_s, results_s, peak_s = _timed(
+        dev, [(f"{c}/shared", db, qs) for c, qs in batches], launches,
+        "mesh_shared", caps=caps, mesh=mesh, budget="shared")
+    q1s = next(qs for c, qs in batches if "serve_q1" in c)
+    sel = [q_select(k) for k in zipf_keys(rng, kg.n_directors, 1_000, 64)]
+    extra = [("uniform q1", q1s, {"fused": False}),
+             ("fused select", sel, {"fused": True}),
+             ("uniform select", sel, {"fused": False})]
+    extra = [(w, qs, kw, db.query(qs, caps=caps, mesh=mesh,
+                                  backend="kernel", **kw))
+             for w, qs, kw in extra]
+    _sync(dev)
+
+    compared, local_ff = 0, {}
+    for (cell, qs, pq), (_, _, sh) in zip(results, results_s):
+        _same(pq, db.query(qs, caps=caps, mesh=mesh, fused=True,
+                           backend="ref"), cell)
+        _same(sh, db.query(qs, caps=caps, mesh=mesh, budget="shared",
+                           backend="ref"), f"{cell}/shared")
+        _shared_contract(sh, pq, f"{cell}/shared")
+        for res, kw, what in ((pq, {"fused": True}, cell),
+                              (sh, {"budget": "shared"}, f"{cell}/shared")):
+            loc = db.query(qs, caps=caps, backend="kernel", **kw)
+            compared += _agree_local(res, loc, what)
+            local_ff.setdefault(what, []).append(loc.failed_q)
+    for what, qs, kw, res in extra:
+        _same(res, db.query(qs, caps=caps, mesh=mesh, backend="ref", **kw),
+              f"mesh4 {what}")
+        compared += _agree_local(res, db.query(qs, caps=caps,
+                                               backend="kernel", **kw),
+                                 f"mesh4 {what}")
+    # the local path's fast-fail share on the same batches and store
+    ff = {c: float(np.concatenate(f).mean()) for c, f in local_ff.items()}
+    for cell, ts in lat.items():
+        _serve_line(cell, ts, [r for c, _, r in results if c == cell], 64,
+                    peak_frontier_bytes=peak[cell],
+                    local_path_fast_fail_share=ff[cell])
+    for cell, ts in lat_s.items():
+        rs = [r for c, _, r in results_s if c == cell]
+        _serve_line(cell, ts, rs, 64, shared_ovf_share=float(
+            np.concatenate([r.shared_ovf_q for r in rs]).mean()),
+            shared_peak_frontier_bytes=peak_s[cell],
+            local_path_fast_fail_share=ff[cell])
+    say("MESH_PARITY", batches=len(results) + len(results_s) + len(extra),
+        identical_to_ref=True, contract_held=True,
+        queries_agreeing_with_local_path=compared)
+    if dev.type == "cuda":
+        for cell, qs in _firsts(batches).items():
+            phase_profile(db, cell, qs, float(np.median(lat[cell])),
+                          caps=caps, mesh=mesh, fused=True)
+            phase_profile(db, f"{cell}/shared", qs,
+                          float(np.median(lat_s[f"{cell}/shared"])),
+                          caps=caps, mesh=mesh, budget="shared")
+
+
+def build_doc_store(dev, n_docs: int, d: int, seed: int = 7,
+                    n_shards: int = 1):
     """The hybrid vector+graph workload of ``benchmarks/bench_vector.py``
     (``doc`` vertices whose ``d`` f32 attributes are drawn N(0, 1), ``tag``
     vertices, 16 docs a tag, doc i linked to tags i % n_tags and
-    (7i + 3) % n_tags), laid out by the port's loader on one shard and
-    vector-indexed.  Returns (db, edges, load seconds, backfill seconds)."""
+    (7i + 3) % n_tags), laid out by the port's loader on ``n_shards``
+    shards and vector-indexed.  Returns (db, edges, load seconds, backfill
+    seconds)."""
     import numpy as np
     from repro_torch.core.addressing import StoreConfig
     from repro_torch.core.catalog import Catalog
@@ -670,9 +838,16 @@ def build_doc_store(dev, n_docs: int, d: int, seed: int = 7):
     t0 = time.perf_counter()
     n_tags = n_docs // 16
     n_v = n_docs + n_tags
-    cfg = StoreConfig(n_shards=1, cap_v=n_v, cap_e=2 * n_docs,
-                      cap_delta=16_384, cap_idx=n_v, cap_idx_delta=16_384,
-                      cap_vec=n_docs, d_f32=d, d_i32=2)
+    S = n_shards
+    per_v = -(-n_v // S)
+    # a shard's half-edges: 2 a doc it owns, ~32 a tag it owns
+    cap_e = 2 * n_docs if S == 1 else 2 * -(-n_docs // S) + 64
+    # index entries route by a hash of (type, key), not by gid: room for
+    # the imbalance on several shards
+    cfg = StoreConfig(n_shards=S, cap_v=per_v, cap_e=cap_e,
+                      cap_delta=16_384, cap_idx=per_v if S == 1 else 2 * per_v,
+                      cap_idx_delta=16_384,
+                      cap_vec=-(-n_docs // S), d_f32=d, d_i32=2)
     catalog = Catalog()
     catalog.create_tenant("default")
     catalog.create_graph("default", "g")
@@ -697,7 +872,7 @@ def build_doc_store(dev, n_docs: int, d: int, seed: int = 7):
         key=np.concatenate([docs, 10_000 + np.arange(n_tags)]), f=f, i=i),
         edges, 1, dev)
     db = GraphDB(cfg, catalog=catalog, device=dev, store=store)
-    db.v_next[:] = n_v
+    db.v_next[:] = np.bincount(np.arange(n_v) % S, minlength=S)
     _sync(dev)
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -769,7 +944,8 @@ def phase_nearest(dev, sizes, n_batches: int, launches, caps_kw=A1_CAPS):
                           caps=caps, **kw)
 
 
-OWN_KERNELS = ("searchsorted_left_ranged_kernel", "expand_kernel",
+OWN_KERNELS = ("searchsorted_left_ranged_kernel", "searchsorted_left_kernel",
+               "expand_kernel",
                "dedup_compact_rows_kernel", "sort_rows_kernel",
                "chunk_sort_kernel", "global_step_kernel",
                "chunk_merge_kernel", "knn_chunk_kernel", "knn_merge_kernel")
@@ -863,35 +1039,47 @@ def phase_small_reference(dev):
 
 
 def _small_nearest_reference(dev) -> int:
-    """A small doc store: Nearest -> doc.tag counts in both budget modes
-    against numpy, which sums the distances in the port's order (float32,
-    each multiply and add rounded on its own) and takes the k smallest by
-    (dist, gid)."""
+    """Small doc stores: Nearest -> doc.tag counts in both budget modes, on
+    one shard and through a 4-shard mesh (equal to ``backend="ref"`` there
+    too), against numpy, which sums the distances in the port's order
+    (float32, each multiply and add rounded on its own) and takes the k
+    smallest by (dist, gid)."""
     import numpy as np
-    db, edges, _, _ = build_doc_store(dev, n_docs=3_000, d=32, seed=5)
-    emb = db.store.vx_emb[:3_000].cpu().numpy()
-    gid = db.store.vx_gid[:3_000].cpu().numpy()
-    tags_of = {}
-    for s_, t_ in zip(edges["src"].tolist(), edges["dst"].tolist()):
-        tags_of.setdefault(s_, set()).add(t_)
+    from repro_torch.dist.mesh import make_mesh
     vecs = np.random.default_rng(9).standard_normal((16, 32), np.float32)
-    want = []
-    for v in vecs:
-        ee = np.zeros(emb.shape[0], np.float32)
-        ip = np.zeros(emb.shape[0], np.float32)
-        for d in range(emb.shape[1]):
-            ee = ee + emb[:, d] * emb[:, d]
-            ip = ip + v[d] * emb[:, d]
-        dist = (ee - np.float32(2.0) * ip) + np.float32(0.0)
-        top = np.lexsort((gid, dist))[:NEAREST_K]
-        want.append(len(set().union(*(tags_of[int(gid[j])] for j in top))))
-    for budget in ("per-query", "shared"):
-        res = db.query([q_near(v) for v in vecs], budget=budget,
-                       backend="kernel")
-        check(res.counts.tolist() == want,
-              f"small nearest, budget={budget}: {res.counts.tolist()} != "
-              f"{want}")
-    return 2 * len(want)
+    n = 0
+    for n_shards in (1, 4):
+        db, edges, _, _ = build_doc_store(dev, n_docs=3_000, d=32, seed=5,
+                                          n_shards=n_shards)
+        gid = db.store.vx_gid.cpu().numpy()
+        emb = db.store.vx_emb.cpu().numpy()[gid >= 0]
+        gid = gid[gid >= 0]
+        tags_of = {}
+        for s_, t_ in zip(edges["src"].tolist(), edges["dst"].tolist()):
+            tags_of.setdefault(s_, set()).add(t_)
+        want = []
+        for v in vecs:
+            ee = np.zeros(emb.shape[0], np.float32)
+            ip = np.zeros(emb.shape[0], np.float32)
+            for d in range(emb.shape[1]):
+                ee = ee + emb[:, d] * emb[:, d]
+                ip = ip + v[d] * emb[:, d]
+            dist = (ee - np.float32(2.0) * ip) + np.float32(0.0)
+            top = np.lexsort((gid, dist))[:NEAREST_K]
+            want.append(len(set().union(*(tags_of[int(gid[j])]
+                                          for j in top))))
+        kw = {} if n_shards == 1 else {"mesh": make_mesh(n_shards, dev)}
+        for budget in ("per-query", "shared"):
+            qs = [q_near(v) for v in vecs]
+            res = db.query(qs, budget=budget, backend="kernel", **kw)
+            check(res.counts.tolist() == want,
+                  f"small nearest, {n_shards} shard(s), budget={budget}: "
+                  f"{res.counts.tolist()} != {want}")
+            if kw:
+                _same(res, db.query(qs, budget=budget, backend="ref", **kw),
+                      f"small nearest mesh, budget={budget}")
+            n += len(want)
+    return n
 
 
 def _events_ms(fn, n: int = 20) -> float:
@@ -943,6 +1131,12 @@ def _bound(name, args, kw, out):
              ).clamp(min=0)
         probes = int(sum(int(x).bit_length() for x in w.tolist()))
         nbytes, ops = 16 * q.shape[0] + 4 * probes, probes
+    elif name == "searchsorted_left":
+        # the same count as the ranged probe's: the keys a binary search
+        # must read (one a halving), the queries in, the positions out
+        keys, q = args
+        probes = q.shape[0] * int(keys.shape[0]).bit_length()
+        nbytes, ops = 8 * q.shape[0] + 4 * probes, probes
     elif name == "expand":
         starts, degs, pools = args[0], args[1], args[2]
         item, tw, cap_tiles = args[3], args[4], kw["cap_tiles"]
@@ -991,6 +1185,8 @@ def phase_kernel_report(launches, best):
     from repro_torch.kernels.sorted_lookup import kernel as sk
     fns = {"searchsorted_left_ranged": (sk.searchsorted_left_ranged,
                                         sk.searchsorted_left_ranged_plain),
+           "searchsorted_left": (sk.searchsorted_left,
+                                 sk.searchsorted_left_plain),
            "expand": (ek.expand, ek.expand_plain),
            "dedup_compact_rows": (dk.dedup_compact_rows,
                                   dk.dedup_compact_rows_plain),
@@ -1002,7 +1198,12 @@ def phase_kernel_report(launches, best):
     for path, names in (("shared", ("sort_pairs", "expand",
                                     "searchsorted_left_ranged")),
                         ("nearest", ("knn_topk", "dedup_compact_rows")),
-                        ("nearest_shared", ("knn_topk", "sort_pairs"))):
+                        ("nearest_shared", ("knn_topk", "sort_pairs")),
+                        ("mesh", ("searchsorted_left", "expand",
+                                  "dedup_compact_rows", "sort_rows")),
+                        ("mesh_shared", ("searchsorted_left", "sort_pairs",
+                                         "expand",
+                                         "searchsorted_left_ranged"))):
         for name in names:
             check(launches[path][name] > 0,
                   f"{name} was not launched on the {path} path")
@@ -1026,6 +1227,9 @@ def phase_kernel_report(launches, best):
         elif name == "sort_pairs":
             packed = dref.pack_pairs(*args)
             lib = lambda: torch.sort(packed)
+        elif name == "searchsorted_left":
+            lib = lambda: torch.searchsorted(args[0], args[1],  # noqa: E731
+                                             out_int32=True)
         elif name == "searchsorted_left_ranged":
             keys, q, lo, hi = args
             if bool((lo == lo[0]).all()) and bool((hi == hi[0]).all()):
@@ -1052,8 +1256,8 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
     ap.add_argument("--rehearse", action="store_true",
-                    help="without a GPU: phases 4-7 and 9 at a tiny size on "
-                         "the CPU, then exit 1")
+                    help="without a GPU: phases 4-8 and 10 at a tiny size "
+                         "on the CPU, then exit 1")
     args = ap.parse_args(argv)
     import torch
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1070,6 +1274,11 @@ def main(argv=None) -> int:
         batches, results, peak = phase_serve(kg, dev, 1, launches, caps)
         phase_serve_shared(kg, dev, batches, results, peak, launches, caps)
         phase_nearest(dev, NEAREST_REHEARSE, 1, launches, caps)
+        kg = phase_load(dev, KG_REHEARSE, dict(A1_MESH, cap_v=5_000,
+                                               cap_e=20_000, cap_idx=5_000),
+                        MESH_REDUCED)
+        phase_mesh(kg, dev, 1, launches, dict(A1_MESH_CAPS, frontier=256,
+                                              expand=1024, bucket=256))
         phase_small_reference(dev)
         print("chip_smoke: CPU rehearsal finished; no GPU result",
               file=sys.stderr)
@@ -1088,6 +1297,12 @@ def main(argv=None) -> int:
         del kg, batches, results
         torch.cuda.empty_cache()
         phase_nearest(dev, NEAREST_FULL, BATCHES, launches)
+        torch.cuda.empty_cache()
+        kg = phase_load(dev, KG_MESH, A1_MESH, MESH_REDUCED)
+        rec.only = {"searchsorted_left"}      # the earlier paths' inputs stay
+        phase_mesh(kg, dev, BATCHES, launches)
+        del kg
+        torch.cuda.empty_cache()
         rec.restore()
         phase_kernel_report(launches, rec.best)
         phase_small_reference(dev)

@@ -9,7 +9,7 @@ hand-written kernels under ``repro_torch.kernels``.
     (library sorts and searches, the direct dense edge expansion, the plain
     k-NN).  Defines the semantics.
   * ``kind="kernel"`` — the kernel path (tile plan -> ``edge_expand`` ->
-    scatter, ``sorted_lookup``, ``dedup_compact``, ``sort_pairs``,
+    scatter, both ``sorted_lookup`` probes, ``dedup_compact``, ``sort_pairs``,
     ``knn_topk``).  On CUDA tensors every
     kernel wrapper launches its CUDA kernel or raises; on CPU tensors it runs
     that kernel's plain PyTorch version, as Pallas runs in interpret mode on
@@ -96,6 +96,14 @@ def searchsorted_blocked(keys, queries, lo, *, block: int, backend: Backend):
                              queries[None, :].expand(S, -1).contiguous(),
                              out_int32=True)
     return pos.gather(0, (lo // block).long()[None, :])[0]
+
+
+def searchsorted(keys, queries, *, backend: Backend):
+    """Left insertion position of each query in one flat sorted array (a
+    shard's whole index block in the SPMD probe)."""
+    if backend.is_kernel:
+        return _lookup_kernel.searchsorted_left(keys, queries)
+    return torch.searchsorted(keys, queries, out_int32=True)
 
 
 def searchsorted_ranged(keys, queries, lo, hi, *, backend: Backend):

@@ -144,8 +144,12 @@ class GraphDB:
     def query(self, queries: list[dict], **kw):
         """Execute a batch of A1QL queries (chains and star patterns); see
         :func:`repro_torch.core.query.engine.execute`.  Accepts ``caps=``,
-        ``backend=``, ``read_ts=`` (scalar or per-query), ``parsed=``,
-        ``fused=``, ``budget=``, ``deadline=``; returns a ``QueryResult``."""
+        ``backend=``, ``read_ts=`` (scalar or per-query), ``mesh=`` (a
+        ``repro_torch.dist.mesh.make_mesh(cfg.n_shards, device=...)``: the
+        SPMD query-shipping programs, one shard a mesh slot), ``parsed=``,
+        ``fused=``, ``budget=``, ``deadline=``; returns a ``QueryResult``.
+        ``planner.FRONTIER_STATS`` and ``OVERFLOW_STATS`` count mesh runs
+        as they count local ones."""
         from repro_torch.core.query.engine import execute
         return execute(self, queries, **kw)
 

@@ -110,6 +110,16 @@ def lookup(store: GraphStore, cfg: StoreConfig, vtypes, keys, valid, read_ts,
     return gids, gids >= 0
 
 
+def blocks_sorted(store: GraphStore, cfg: StoreConfig) -> list:
+    """Whether each shard's probe keys (``mix32(vtype, key)``, INT32_MAX
+    where ``gid < 0``) ascend: the precondition under which a binary search
+    gives the reference's ``count(keys < q)``.  The compactions sort live
+    entries by mix32 and blank the rest, so every compacted block does."""
+    h = torch.where(store.ix_gid >= 0, mix32(store.ix_vtype, store.ix_key),
+                    I32MAX).view(cfg.n_shards, cfg.cap_idx)
+    return (h[:, 1:] >= h[:, :-1]).all(dim=1).tolist()
+
+
 def compact_index(store: GraphStore, cfg: StoreConfig, gc_ts) -> GraphStore:
     """Merge the index delta into the sorted main index (all shards)."""
     S, cap_x, cap_xd = cfg.n_shards, cfg.cap_idx, cfg.cap_idx_delta

@@ -15,9 +15,14 @@ routing is internal:
 
 ``budget="shared"`` pools every live query's frontier into one shared
 pool (``planner_shared``) and always runs fused; ``Nearest``-rooted plans
-exist only as fused k-NN probe waves, so they run fused too.  ``mesh=``
-(SPMD) belongs to a later slice of the port and raises
-``NotImplementedError``.
+exist only as fused k-NN probe waves, so they run fused too.
+
+``mesh=`` (a :class:`repro_torch.dist.mesh.ShardMesh` of ``cfg.n_shards``
+shards) runs the SPMD programs of each path instead (the §3.4 query
+shipping of ``executor_spmd`` and the planners), with the same results;
+their select rows are ordered shard-major, so a gid cursor under ``mesh=``
+raises.  The mesh's shard order is the row-major order of the JAX
+package's ``("data", "model")`` axes, so there is no ``storage_axes``.
 """
 from __future__ import annotations
 
@@ -79,17 +84,22 @@ def execute(db, queries: list[dict], *, caps: Optional[QueryCaps] = None,
     ``"gid_cursor"`` (a runtime final predicate ``gid > cursor``); cursor
     batches run fused.  ``deadline`` is an absolute ``time.monotonic()``
     instant: fusion groups past it are skipped and flagged ``deadline_q``.
+    ``mesh`` is a ``ShardMesh`` with one shard per store shard.
     """
     from repro_torch.core.query import planner
+    from repro_torch.dist.mesh import ShardMesh
     if not queries:
         raise ValueError("execute() needs at least one query")
     if budget not in (None, "per-query", "shared"):
         raise ValueError(f"budget must be 'per-query' or 'shared', "
                          f"got {budget!r}")
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the SPMD executors) is a later slice of the PyTorch "
-            "port: ROADMAP queue 1, item 13")
+        if not isinstance(mesh, ShardMesh):
+            raise TypeError(f"mesh= takes a repro_torch.dist.mesh.ShardMesh, "
+                            f"got {type(mesh).__name__}")
+        if mesh.size != db.cfg.n_shards:
+            raise ValueError(f"a mesh of {mesh.size} shards over a store of "
+                             f"{db.cfg.n_shards}: one shard a mesh slot")
     caps = caps or QueryCaps()
     be = backend_mod.resolve(backend or getattr(db, "backend", None))
     lowered = _normalize_parsed(db, queries, parsed)
@@ -98,6 +108,12 @@ def execute(db, queries: list[dict], *, caps: Optional[QueryCaps] = None,
     eff_caps = [lo.hints.apply(caps) for lo in lowered]
     cursors = [lo.cursor for lo in lowered]
     any_cursor = any(c >= 0 for c in cursors)
+    if any_cursor and mesh is not None:
+        # SPMD select rows are shard-major, not gid-ascending: paging by a
+        # max-gid cursor could skip rows on later shards for good
+        raise ValueError("gid_cursor is not supported under mesh= "
+                         "(SPMD rows are shard-major; use the growing-"
+                         "window continuation instead)")
     # Nearest-rooted plans exist only as fused probe-wave rows (the
     # per-plan executor has no k-NN wave)
     any_nearest = any(p.nearest_k > 0 for lo in lowered
@@ -125,17 +141,19 @@ def execute(db, queries: list[dict], *, caps: Optional[QueryCaps] = None,
     try:
         if run_fused:
             return planner.execute_fused(db, lowered, eff_caps, ts_list, be,
+                                         mesh=mesh,
                                          budget=budget or "per-query",
                                          cursors=cursors, deadline=deadline)
-        return _execute_uniform(db, lowered, eff_caps[0], ts_list[0], be)
+        return _execute_uniform(db, lowered, eff_caps[0], ts_list[0], be,
+                                mesh)
     finally:
         for t in pins:
             db.active_query_ts.remove(t)
 
 
 def _execute_uniform(db, lowered: list[ir.Lowered], caps: QueryCaps,
-                     read_ts: int, be) -> QueryResult:
-    """One plan shape, shared working-set budget: the per-plan executor."""
+                     read_ts: int, be, mesh=None) -> QueryResult:
+    """One plan shape, shared working-set budget: the per-plan executors."""
     from repro_torch.core.query.planner import index_window
     plan = lowered[0].plan
     Q = len(lowered)
@@ -146,7 +164,12 @@ def _execute_uniform(db, lowered: list[ir.Lowered], caps: QueryCaps,
     else:
         keys = [lo.keys[0] for lo in lowered]
     keys = torch.tensor(keys, dtype=torch.int32, device=db.device)
-    fn = compile_query(db.cfg, plan, caps, Q, be, xwin=index_window(db))
+    if mesh is not None:
+        from repro_torch.core.query.executor_spmd import compile_query_spmd
+        fn = compile_query_spmd(db.cfg, plan, caps, Q, mesh, backend=be,
+                                xwin=index_window(db))
+    else:
+        fn = compile_query(db.cfg, plan, caps, Q, be, xwin=index_window(db))
     out = fn(db.store, keys, torch.ones((Q,), dtype=torch.bool,
                                         device=db.device), int(read_ts))
     return _to_result(plan, out)

@@ -34,14 +34,13 @@ class QueryCaps:
     frontier: int = 1024       # live (qid, gid) pairs between hops
     expand: int = 4096         # CSR expansion slots per hop
     results: int = 64          # rows returned per query
-    bucket: int = 256          # SPMD routing bucket (an A1QL hint; the
-                               # SPMD executors are a later slice)
+    bucket: int = 256          # SPMD routing bucket per destination shard
     # shared-frontier mode only (GraphDB.query(..., budget="shared")):
     # explicit shared-pool sizes; 0 = the planner's auto policy
     # (per-cap * ceil(sqrt(units)) — see planner.shared_budget)
     shared_frontier: int = 0
     shared_expand: int = 0
-    shared_bucket: int = 0     # SPMD shared routing bucket (a later slice)
+    shared_bucket: int = 0     # SPMD shared routing bucket
 
 
 @dataclasses.dataclass

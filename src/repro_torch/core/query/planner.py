@@ -19,7 +19,11 @@ sorted-unique gids, so every query keeps its own §3.4 budget and snapshot
 and its results (fast-fail flags included) equal a solo run.
 ``budget="shared"`` runs the flat shared-pool programs of
 :mod:`repro_torch.core.query.planner_shared` instead; grouping, caching and
-the assembly are shared.  The SPMD programs are a later slice of the port.
+the assembly are shared.  Under ``mesh=`` (:func:`compile_batch_spmd`) the
+same waves run as the §3.4 query-shipping protocol over the shards of a
+``ShardMesh``: each wave routes the active pairs to their owners (one
+``all_to_all``), the owner runs the previous hop's vertex checks and
+expands from its own block, and the results aggregate with ``psum``.
 """
 from __future__ import annotations
 
@@ -38,8 +42,11 @@ from repro_torch.core.addressing import NULL, StoreConfig
 from repro_torch.core.edges import TILE
 from repro_torch.core.query.a1ql import Plan
 from repro_torch.core.query.executor import (I32MAX, QueryCaps, QueryResult,
-                                             eval_pred, select_attrs)
+                                             _scatter_drop, eval_pred,
+                                             select_attrs)
+from repro_torch.core.query.executor_spmd import _lookup_local, stable_sort_by
 from repro_torch.core.store import visible, window_shard_major
+from repro_torch.dist import mesh as mesh_mod
 
 PAD = I32MAX    # empty frontier slot; sorts last, keeps rows ascending
 _NULL = int(NULL)
@@ -596,7 +603,8 @@ def _has_nearest(plans) -> bool:
 
 
 def execute_fused(db, lowered: list, eff_caps: list, ts_list: list[int],
-                  be: backend_mod.Backend, budget: str = "per-query",
+                  be: backend_mod.Backend, mesh=None,
+                  budget: str = "per-query",
                   cursors: Optional[Sequence[int]] = None,
                   deadline: Optional[float] = None) -> QueryResult:
     """Run pre-lowered plans as fused multi-query waves.
@@ -606,7 +614,8 @@ def execute_fused(db, lowered: list, eff_caps: list, ts_list: list[int],
     alone.  ``budget="shared"`` runs the shared-frontier programs
     (``planner_shared``): one flat (seg, gid) pool per group with an
     O(F*sqrt(R)) capacity; results can differ from per-query mode only via
-    fast-fail flags under shared overflow (``shared_ovf_q``).  ``cursors``
+    fast-fail flags under shared overflow (``shared_ovf_q``).  ``mesh`` (a
+    ``ShardMesh``) runs the SPMD programs of either mode.  ``cursors``
     is the per-query gid cursor (-1 = none); ``deadline`` is an absolute
     ``time.monotonic()`` instant past which a group is skipped and flagged
     ``deadline_q``."""
@@ -649,14 +658,323 @@ def execute_fused(db, lowered: list, eff_caps: list, ts_list: list[int],
             FS = shared_budget(R, caps_g.frontier, caps_g.shared_frontier)
             FRONTIER_STATS["shared_peak_bytes"] = max(
                 FRONTIER_STATS["shared_peak_bytes"], 2 * 4 * FS)
-            fn = planner_shared.compile_batch_shared(
-                db.cfg, plans_g, caps_g, be, dwin, xwin, vw_g, dev)
+            if mesh is not None:
+                fn = planner_shared.compile_batch_shared_spmd(
+                    db.cfg, plans_g, caps_g, mesh, be, dwin, xwin, vw_g)
+            else:
+                fn = planner_shared.compile_batch_shared(
+                    db.cfg, plans_g, caps_g, be, dwin, xwin, vw_g, dev)
         else:
             FRONTIER_STATS["per_query_peak_bytes"] = max(
                 FRONTIER_STATS["per_query_peak_bytes"],
                 4 * R * caps_g.frontier)
-            fn = compile_batch(db.cfg, plans_g, caps_g, be, dwin, xwin, vw_g,
-                               dev)
+            if mesh is not None:
+                fn = compile_batch_spmd(db.cfg, plans_g, caps_g, mesh, be,
+                                        dwin, xwin, vw_g)
+            else:
+                fn = compile_batch(db.cfg, plans_g, caps_g, be, dwin, xwin,
+                                   vw_g, dev)
         valid = torch.ones((R,), dtype=torch.bool, device=dev)
         out.put(idxs, fn(db.store, keys, vecs, valid, ts, cur))
     return out.result()
+
+
+# ---------------------------------------------------------------------------
+# the SPMD fused program (query shipping, one program per batch shape)
+# ---------------------------------------------------------------------------
+
+def _bucket_rows(g, m, S: int, B: int):
+    """One shard's fused RPC buckets: (R, F) pairs -> (S, R*B) slots, B per
+    (unit, owner), each unit's pairs sorted stably by owner; returns the
+    buckets and the per-unit overflow flags."""
+    R, F = g.shape
+    dev = g.device
+    ow_s, g_s = stable_sort_by(torch.where(m, g % S, S), g, dim=1)
+    starts = torch.searchsorted(
+        ow_s, torch.arange(S, dtype=ow_s.dtype, device=dev)[None, :]
+        .expand(R, S).contiguous(), out_int32=True)
+    col = (torch.arange(F, dtype=torch.int32, device=dev)[None, :]
+           - starts.gather(1, torch.clamp(ow_s, max=S - 1).long()))
+    ok = ow_s < S
+    overflow_r = (ok & (col >= B)).any(dim=1)
+    keep = ok & (col >= 0) & (col < B)
+    qcol = (torch.arange(R, dtype=torch.int32, device=dev)[:, None] * B
+            + torch.clamp(col, 0, B - 1))
+    flat = torch.where(keep, ow_s.long() * (R * B) + qcol, S * R * B)
+    return (_scatter_drop(S * R * B, flat.reshape(-1), g_s.reshape(-1),
+                          _NULL).reshape(S, R * B), overflow_r)
+
+
+def _route_rows(gs, ms, S: int, B: int):
+    """Fused routing on per-shard lists: (R, F) pairs -> all_to_all ->
+    (R, S*B) arrivals.  Buckets are per (unit, owner), so one hot query
+    cannot evict another's RPCs.  Returns per-shard (arrived gids, arrived
+    mask, overflow_r)."""
+    bg, ovf = zip(*(_bucket_rows(g, m, S, B) for g, m in zip(gs, ms)))
+    out = []
+    for rg in mesh_mod.all_to_all(list(bg)):
+        R = rg.shape[1] // B
+        out.append(rg.reshape(S, R, B).transpose(0, 1).reshape(R, S * B))
+    return out, [a >= 0 for a in out], list(ovf)
+
+
+def _knn_merge(ad, ag, R: int):
+    """The distributed k-NN merge: (S, R, KMAX) per-shard top lists -> (R,
+    S*KMAX) gids sorted by (dist, gid) ascending (a stable sort by gid, then
+    by distance: -0.0 and +0.0 tie, as in the reference's sort)."""
+    ad = ad.transpose(0, 1).reshape(R, -1)
+    ag = ag.transpose(0, 1).reshape(R, -1)
+    ag, ad = stable_sort_by(ag, ad, dim=1)
+    return stable_sort_by(ad, ag, dim=1)[1]
+
+
+def _spmd_pending(chains, waves, R: int):
+    """The owner-side checks each wave owes: wave w validates what wave w-1
+    emitted (w = 0 the index scan's start vertices), and the finalize step
+    the last hop's; units parked at a wave owe nothing there.  Returns
+    (pend_tvt, pend_preds, fin_tvt, fin_preds) as host tables."""
+    pend_tvt, pend_preds = [], []
+    for w in range(len(waves)):
+        if w == 0:
+            pend_tvt.append(np.array([c.start_vtype for c in chains],
+                                     np.int32))
+            pend_preds.append([])
+        else:
+            pend_tvt.append(np.array(
+                [c.hops[w - 1].target_vtype if len(c.hops) > w else -1
+                 for c in chains], np.int32))
+            pend_preds.append(_pred_groups(
+                [(ri, c.hops[w - 1].pred, R) for ri, c in enumerate(chains)
+                 if len(c.hops) > w and c.hops[w - 1].pred]))
+    # zero-hop units (Nearest-rooted, no chain) owe only the start-type
+    # check, which their seeds pass by construction: an idempotent no-op
+    fin_tvt = np.array([c.hops[-1].target_vtype if c.hops else c.start_vtype
+                        for c in chains], np.int32)
+    fin_preds = _pred_groups([(ri, c.hops[-1].pred, R)
+                              for ri, c in enumerate(chains)
+                              if c.hops and c.hops[-1].pred])
+    return pend_tvt, pend_preds, fin_tvt, fin_preds
+
+
+def compile_batch_spmd(cfg: StoreConfig, plans: tuple, caps: QueryCaps,
+                       mesh, backend: backend_mod.Backend = backend_mod.REF,
+                       dwin: Optional[int] = None, xwin: Optional[int] = None,
+                       vwin: Optional[int] = None):
+    """The fused-wave program on a shard mesh: the §3.4 coordinator/worker
+    protocol for a whole mixed batch (stars included), with the contract of
+    :func:`compile_batch`: ``run(store, keys, vecs, valid_in, ts_q,
+    cur_q)``.  Select rows come out shard-major (each shard's rows after
+    the shards before it), not gid-ascending."""
+    dwin = cfg.cap_delta if dwin is None else min(dwin, cfg.cap_delta)
+    key = (cfg, plans, caps, len(plans), mesh, backend, dwin, xwin, vwin,
+           "spmd")
+    fn = _cache_get(key)
+    if fn is not None:
+        return fn
+
+    Q = len(plans)
+    F, E, B, K = caps.frontier, caps.expand, caps.bucket, caps.results
+    S = cfg.n_shards
+    chains, row2q_np, n_br_np, rows_of_q_np = _unit_tables(plans)
+    R = len(chains)
+    has_star = any(p.is_intersect for p in plans)
+    waves_np = _wave_tables(chains)
+    terminal = plans[0].terminal
+    select = tuple(zip(plans[0].select_kind, plans[0].select_cols))
+    kvec_np, has_nearest, KMAX = _nearest_tables(chains, F)
+    vw = (min(cfg.cap_vec if vwin is None else vwin, cfg.cap_vec)
+          if has_nearest else 0)
+    pend_tvt, pend_preds, fin_tvt, fin_preds = _spmd_pending(
+        chains, waves_np, R)
+
+    def tables(device):
+        """The static tables on one device."""
+        def dev_t(a, dtype=None):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+        def dev_preds(groups):
+            return [(pred, dev_t(mask)) for pred, mask in groups]
+        return dict(
+            row2q=dev_t(row2q_np, torch.int64),
+            n_br=dev_t(n_br_np, torch.int32),
+            rows_of_q=dev_t(rows_of_q_np, torch.int64),
+            start_vt=dev_t([c.start_vtype for c in chains], torch.int32),
+            waves=[dict(act=dev_t(w.act), is_out=dev_t(w.is_out),
+                        etype=dev_t(w.etype, torch.int32),
+                        any_out=w.any_out, any_in=w.any_in,
+                        tvt=dev_t(pend_tvt[i], torch.int32),
+                        preds=dev_preds(pend_preds[i]))
+                   for i, w in enumerate(waves_np)],
+            fin_tvt=dev_t(fin_tvt, torch.int32),
+            fin_preds=dev_preds(fin_preds),
+            final_preds=dev_preds(_final_pred_groups(plans)),
+            no_tvt=torch.full((Q,), -1, dtype=torch.int32, device=device),
+            nmask=dev_t(kvec_np > 0), kvec=dev_t(kvec_np, torch.int32),
+            colk=torch.arange(KMAX, dtype=torch.int32,
+                              device=device)[None, :])
+    tabs = {d: tables(d) for d in set(mesh.devices)}
+
+    def run(store, keys, vecs, valid_in, ts_q, cur_q):
+        sts = mesh_mod.shard_store(store, cfg, mesh)
+        T = [tabs[d] for d in mesh.devices]
+        keys_l, valid_l = mesh.replicate(keys), mesh.replicate(valid_in)
+        ts_l, cur_l = mesh.replicate(ts_q), mesh.replicate(cur_q)
+        ts_r = [ts[t["row2q"]] for ts, t in zip(ts_l, T)]  # (R,) per unit
+        failed_r = [torch.zeros((R,), dtype=torch.bool, device=k.device)
+                    for k in keys_l]
+        # ---- lookup wave: every shard probes its own index block ----------
+        scan = []
+        for me, (st, t) in enumerate(zip(sts, T)):
+            look_ok = (valid_l[me] & ~t["nmask"] if has_nearest
+                       else valid_l[me])
+            g0 = _lookup_local(st, cfg, me, t["start_vt"], keys_l[me],
+                               look_ok, ts_r[me], backend, xd_win=xwin)
+            scan.append(torch.where(g0 >= 0, g0, PAD))
+        g, valid = [], []
+        if has_nearest:
+            # distributed k-NN probe: each shard scores its own block, the
+            # per-shard top-KMAX lists are gathered and merged into one
+            # global selection (the same on every shard), and each shard
+            # keeps the seeds it owns
+            vecs_l = mesh.replicate(vecs)
+            dd, gg = zip(*(backend_mod.knn_topk(
+                vecs_l[me], st.vx_emb[:vw], st.vx_gid[:vw],
+                st.vx_vtype[:vw], st.vx_create[:vw], st.vx_delete[:vw],
+                t["start_vt"], ts_r[me], KMAX, backend=backend)
+                for me, (st, t) in enumerate(zip(sts, T))))
+            ads, ags = mesh_mod.all_gather(list(dd)), mesh_mod.all_gather(
+                list(gg))
+            for me, t in enumerate(T):
+                gsel = _knn_merge(ads[me], ags[me], R)[:, :KMAX]
+                seeds_ok = (t["nmask"][:, None]
+                            & (t["colk"] < t["kvec"][:, None])
+                            & (gsel != I32MAX) & valid_l[me][:, None]
+                            & ((gsel % S) == me))
+                cand = torch.cat([scan[me][:, None],
+                                  torch.where(seeds_ok, gsel, PAD)], dim=1)
+                gm, vm, ovf = _dedup_rows(cand, cand != PAD, F, backend)
+                failed_r[me] = failed_r[me] | ovf
+                g.append(gm)
+                valid.append(vm)
+        else:
+            for sc in scan:
+                gm = torch.full((R, F), PAD, dtype=torch.int32,
+                                device=sc.device)
+                gm[:, 0] = sc
+                g.append(gm)
+                valid.append(gm != PAD)
+
+        for w in range(len(waves_np)):
+            # 1) batched RPCs: ship the active pairs to their owners
+            arr, am, ovf = _route_rows(
+                g, [v & t["waves"][w]["act"][:, None]
+                    for v, t in zip(valid, T)], S, B)
+            for me, (st, t) in enumerate(zip(sts, T)):
+                wave = t["waves"][w]
+                act = wave["act"]
+                ag, amk, ovf2 = _dedup_rows(arr[me], am[me], F, backend)
+                failed_r[me] = failed_r[me] | ovf[me] | ovf2
+                # 2) owner-side pending checks (the previous hop's)
+                alive = amk & _check_rows(st, torch.where(amk, ag // S, 0),
+                                          amk, ts_r[me], wave["tvt"],
+                                          wave["preds"])
+                # 3) worker step: my CSR block + delta log
+                parts_g = [g[me]]
+                parts_v = [valid[me] & ~act[:, None]]   # parked pairs stay
+                for direction, dmask, present in (
+                        ("out", wave["is_out"], wave["any_out"]),
+                        ("in", ~wave["is_out"], wave["any_in"])):
+                    if not present:
+                        continue
+                    m = alive & act[:, None] & dmask[:, None]
+                    indptr, nbr, typ, ecre, edel = edges_mod._csr_arrays(
+                        st, direction)
+                    delta = edges_mod._delta_arrays(st, direction)
+                    slot = torch.where(m, ag // S, 0)
+                    start = indptr[slot]
+                    deg = (indptr[slot + 1] - indptr[slot]) * m
+                    failed_r[me] = failed_r[me] | (
+                        deg.sum(1, dtype=torch.int32) > E)
+                    out_n = _expand_rows(start, deg, (nbr, typ, ecre, edel),
+                                         wave["etype"], ts_r[me], E, backend)
+                    # my delta block is one shard: window [:dwin]
+                    dslot, dnbr, dtyp, dcre, ddel = (a[:dwin] for a in delta)
+                    dn = _delta_rows(ag // S, m, dslot, dnbr, dtyp, dcre,
+                                     ddel, wave["etype"], ts_r[me])
+                    parts_g += [out_n, dn]
+                    parts_v += [out_n >= 0, dn >= 0]
+                g[me], valid[me], ovf3 = _dedup_rows(
+                    torch.cat(parts_g, dim=1), torch.cat(parts_v, dim=1), F,
+                    backend)
+                failed_r[me] = failed_r[me] | ovf3
+
+        # ---- finalize: route everything, owed checks, merge, aggregate ----
+        arr, am, ovf = _route_rows(g, valid, S, B)
+        fin = []
+        for me, (st, t) in enumerate(zip(sts, T)):
+            ag, v, ovf2 = _dedup_rows(arr[me], am[me], F, backend)
+            failed_r[me] = failed_r[me] | ovf[me] | ovf2
+            v = v & _check_rows(st, torch.where(v, ag // S, 0), v, ts_r[me],
+                                t["fin_tvt"], t["fin_preds"])
+            # the intersect-merge is shard-local: every branch's copy of a
+            # gid lives on the gid's owner
+            if has_star:
+                g2, v = _merge_rows(ag, v, t["n_br"], t["rows_of_q"], F,
+                                    backend)
+            else:
+                g2 = ag
+            rows_l = torch.where(v, g2 // S, 0)
+            if t["final_preds"]:
+                v = v & _check_rows(st, rows_l, v, ts_l[me], t["no_tvt"],
+                                    t["final_preds"])
+            v = v & (g2 > cur_l[me][:, None])   # gid-cursor continuations
+            failed_q = torch.zeros((Q,), dtype=torch.int32,
+                                   device=ag.device).index_add_(
+                0, t["row2q"], failed_r[me].to(torch.int32))
+            fin.append((g2, v, rows_l, failed_q))
+        out = {"failed_q": mesh_mod.psum([x[3] for x in fin])[0] > 0}
+        if terminal == "count":
+            out["counts"] = mesh_mod.psum(
+                [v.sum(1, dtype=torch.int32) for _, v, _, _ in fin])[0]
+            return out
+
+        # select: globally consistent row positions (shard-rank offsets)
+        all_counts = mesh_mod.all_gather(
+            [v.sum(1, dtype=torch.int32) for _, v, _, _ in fin])   # (S, Q)
+        acc_gid, acc_trunc, acc_attr = [], [], []
+        for me, (st, (g2, v, rows_l, _)) in enumerate(zip(sts, fin)):
+            before = (torch.arange(S, device=v.device) < me)[:, None]
+            base = (all_counts[me] * before).sum(0, dtype=torch.int32)
+            vi = v.to(torch.int32)
+            pos = base[:, None] + torch.cumsum(vi, 1, dtype=torch.int32) - vi
+            over = v & (pos >= K)
+            col = torch.where(v & ~over, pos, K)
+            acc_gid.append(_scatter_rows(Q, K, col,
+                                         torch.where(v, g2, 0) + 1, 0))
+            acc_trunc.append(over.any(dim=1).to(torch.int32))
+            use_cur = st.vdata_ts[rows_l] <= ts_l[me][:, None]
+            cols = []
+            for kind, colid in select:
+                if kind == "key":
+                    vals = st.vkey[rows_l]
+                elif kind == "f32":
+                    vals = torch.where(use_cur, st.vdata_f[rows_l, colid],
+                                       st.vprev_f[rows_l, colid])
+                else:
+                    vals = torch.where(use_cur, st.vdata_i[rows_l, colid],
+                                       st.vprev_i[rows_l, colid])
+                cols.append(_scatter_rows(Q, K, col, vals, 0))
+            acc_attr.append(cols)
+        rows_gid = mesh_mod.psum(acc_gid)[0] - 1             # 0 -> NULL
+        attrs = {}
+        for j, (kind, colid) in enumerate(select):
+            summed = mesh_mod.psum([a[j] for a in acc_attr])[0]
+            if kind == "key":     # empty cells read NULL like the local path
+                summed = torch.where(rows_gid >= 0, summed, _NULL)
+            attrs[(kind, colid)] = summed
+        out.update(rows_gid=rows_gid, attrs=attrs,
+                   truncated=mesh_mod.psum(acc_trunc)[0] > 0)
+        return out
+
+    _cache_put(key, run)
+    return run

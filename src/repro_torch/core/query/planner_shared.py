@@ -25,7 +25,9 @@ Entry point: ``GraphDB.query(..., budget="shared")`` -> ``engine.execute``
 -> ``planner.execute_fused(budget="shared")`` -> :func:`compile_batch_shared`.
 The hop compaction is one ``backend.sort_pairs`` a hop (the ``sort_pairs``
 kernel), the expansion runs the ``edge_expand`` kernel and the delta probe
-the ``sorted_lookup`` kernel.  The SPMD program is a later slice.
+the ``sorted_lookup`` kernel.  Under ``mesh=``,
+:func:`compile_batch_shared_spmd` runs the same pool on every shard of a
+``ShardMesh``, with routing buckets shared by every unit.
 """
 from __future__ import annotations
 
@@ -43,10 +45,12 @@ from repro_torch.core.query.executor import (I32MAX, QueryCaps, _scatter_drop,
                                              _segment_count, build_select,
                                              eval_pred)
 from repro_torch.core.query.planner import (PAD, _cache_get, _cache_put,
-                                            _final_pred_groups,
-                                            _nearest_tables, _unit_tables,
-                                            _wave_tables, shared_budget)
+                                            _final_pred_groups, _knn_merge,
+                                            _nearest_tables, _spmd_pending,
+                                            _unit_tables, _wave_tables,
+                                            shared_budget)
 from repro_torch.core.store import visible, window_shard_major
+from repro_torch.dist import mesh as mesh_mod
 
 _NULL = int(NULL)
 
@@ -404,6 +408,287 @@ def compile_batch_shared(cfg: StoreConfig, plans: tuple, caps: QueryCaps,
                 store, cfg, plans[0], torch.where(live, qf, _NULL),
                 torch.where(live, gf, _NULL), live, ts_q[:, None], Q, K)
             out.update(rows_gid=rows_gid, attrs=attrs, truncated=trunc)
+        return out
+
+    _cache_put(key, run)
+    return run
+
+
+# ---------------------------------------------------------------------------
+# the SPMD shared-frontier program
+# ---------------------------------------------------------------------------
+
+def _sort3(a, b, c, n_b: int):
+    """``jax.lax.sort((a, b, c), num_keys=3)`` for ``a`` >= 0 small, ``b``
+    in [0, n_b) and ``c`` any int32: one sort of a packed int64 key."""
+    packed = torch.sort(((a.long() * n_b + b.long()) << 32)
+                        + (c.long() + 2**31)).values
+    hi = packed >> 32
+    return ((hi // n_b).to(torch.int32), (hi % n_b).to(torch.int32),
+            ((packed & 0xFFFFFFFF) - 2**31).to(torch.int32))
+
+
+def _bucket_flat(seg, gid, m, S: int, SB: int, R: int):
+    """One shard's shared RPC buckets: live pairs sorted by (owner, seg,
+    gid) into (S, SB) slots shared by every unit; a dropped pair flags its
+    owner segment.  Returns (bucket segs, bucket gids, failed_seg)."""
+    N = seg.shape[0]
+    dev = seg.device
+    ow_s, s_s, g_s = _sort3(torch.where(m, gid % S, S),
+                            torch.where(m, seg, R), torch.where(m, gid, PAD),
+                            R + 1)
+    starts = torch.searchsorted(
+        ow_s, torch.arange(S, dtype=ow_s.dtype, device=dev), out_int32=True)
+    col = torch.arange(N, dtype=torch.int32, device=dev) - starts[
+        torch.clamp(ow_s, max=S - 1)]
+    ok = ow_s < S
+    failed = _flag_segs(torch.zeros((R,), dtype=torch.bool, device=dev),
+                        ok & (col >= SB), torch.clamp(s_s, max=R), R)
+    keep = ok & (col < SB)
+    flat = torch.where(keep, ow_s * SB + col, S * SB)
+    return (_scatter_drop(S * SB, flat, s_s, R),
+            _scatter_drop(S * SB, flat, g_s, PAD), failed)
+
+
+def _route_flat(segs, gids, ms, S: int, SB: int, R: int):
+    """Shared-bucket routing on per-shard lists: flat pairs -> all_to_all
+    -> (S*SB,) arrivals; returns per-shard (seg', gid', failed_seg)."""
+    bs, bg, failed = zip(*(_bucket_flat(s, g, m, S, SB, R)
+                           for s, g, m in zip(segs, gids, ms)))
+    return (mesh_mod.all_to_all(list(bs)), mesh_mod.all_to_all(list(bg)),
+            list(failed))
+
+
+def compile_batch_shared_spmd(cfg: StoreConfig, plans: tuple,
+                              caps: QueryCaps, mesh,
+                              backend: backend_mod.Backend = backend_mod.REF,
+                              dwin: Optional[int] = None,
+                              xwin: Optional[int] = None,
+                              vwin: Optional[int] = None):
+    """Shared-frontier waves on a shard mesh: the §3.4 coordinator/worker
+    protocol with one shared (seg, gid) pool a shard, the routing buckets
+    ``SB = shared_budget(R, caps.bucket)`` a destination shared by every
+    unit; the contract of :func:`compile_batch_shared`."""
+    from repro_torch.core.query.executor_spmd import (_lookup_local,
+                                                      select_shard_major)
+
+    dwin = cfg.cap_delta if dwin is None else min(dwin, cfg.cap_delta)
+    key = (cfg, plans, caps, len(plans), mesh, backend, dwin, xwin, vwin,
+           "shared-spmd")
+    fn = _cache_get(key)
+    if fn is not None:
+        return fn
+
+    Q = len(plans)
+    F, E, B, K = caps.frontier, caps.expand, caps.bucket, caps.results
+    S = cfg.n_shards
+    chains, row2q_np, n_br_np, _ = _unit_tables(plans)
+    R = len(chains)
+    FS = shared_budget(R, F, caps.shared_frontier)
+    ES = shared_budget(R, E, caps.shared_expand)
+    SB = shared_budget(R, B, caps.shared_bucket)
+    if FS < R:
+        raise ValueError(f"shared frontier budget {FS} below unit count {R}")
+    has_star = any(p.is_intersect for p in plans)
+    waves_np = _wave_tables(chains)
+    terminal = plans[0].terminal
+    select = tuple(zip(plans[0].select_kind, plans[0].select_cols))
+    kvec_np, has_nearest, KMAX = _nearest_tables(chains, F)
+    vw = (min(cfg.cap_vec if vwin is None else vwin, cfg.cap_vec)
+          if has_nearest else 0)
+    pend_tvt, pend_preds, fin_tvt, fin_preds = _spmd_pending(
+        chains, waves_np, R)
+
+    def tables(device):
+        """The static tables on one device, per-unit tables extended by the
+        ghost segment."""
+        def dev_t(a, dtype=None):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+        def dev_preds(groups):
+            return [(pred, dev_t(_ext(mask, False))) for pred, mask in groups]
+        return dict(
+            row2q=dev_t(row2q_np, torch.int64),
+            row2q_x=dev_t(np.concatenate([row2q_np, [Q]]), torch.int32),
+            nbr_x=dev_t(np.concatenate([n_br_np, [-1]]), torch.int32),
+            start_vt=dev_t([c.start_vtype for c in chains], torch.int32),
+            unit_ids=torch.arange(R, dtype=torch.int32, device=device),
+            waves=[dict(act=dev_t(_ext(w.act, False)),
+                        is_out=dev_t(_ext(w.is_out, False)),
+                        etype=dev_t(w.etype, torch.int32),
+                        etype_x=dev_t(_ext(w.etype, -1), torch.int32),
+                        tvt_x=dev_t(_ext(pend_tvt[i], -1), torch.int32),
+                        preds=dev_preds(pend_preds[i]),
+                        any_out=w.any_out, any_in=w.any_in)
+                   for i, w in enumerate(waves_np)],
+            fin_tvt_x=dev_t(_ext(fin_tvt, -1), torch.int32),
+            fin_preds=dev_preds(fin_preds),
+            final_preds=dev_preds(_final_pred_groups(plans)),
+            nmask=dev_t(kvec_np > 0), kvec=dev_t(kvec_np, torch.int32),
+            colk=torch.arange(KMAX, dtype=torch.int32,
+                              device=device)[None, :],
+            zero_r=torch.zeros((R,), dtype=torch.bool, device=device))
+    tabs = {d: tables(d) for d in set(mesh.devices)}
+
+    def run(store, keys, vecs, valid_in, ts_q, cur_q):
+        sts = mesh_mod.shard_store(store, cfg, mesh)
+        T = [tabs[d] for d in mesh.devices]
+        keys_l, valid_l = mesh.replicate(keys), mesh.replicate(valid_in)
+        ts_l, cur_l = mesh.replicate(ts_q), mesh.replicate(cur_q)
+        ts_r = [ts[t["row2q"]] for ts, t in zip(ts_l, T)]
+        ts_x = [torch.cat([x, x.new_zeros((1,))]) for x in ts_r]
+        failed_r = [t["zero_r"] for t in T]
+        shared_r = [t["zero_r"] for t in T]   # the subset the pools caused
+        # ---- lookup wave ------------------------------------------------
+        cands = []
+        for me, (st, t) in enumerate(zip(sts, T)):
+            look_ok = (valid_l[me] & ~t["nmask"] if has_nearest
+                       else valid_l[me])
+            g0 = _lookup_local(st, cfg, me, t["start_vt"], keys_l[me],
+                               look_ok, ts_r[me], backend, xd_win=xwin)
+            cands.append((torch.where(g0 >= 0, t["unit_ids"], R),
+                          torch.where(g0 >= 0, g0, PAD)))
+        if has_nearest:
+            # the distributed k-NN probe of planner.compile_batch_spmd;
+            # each shard's seeds join its flat pool
+            vecs_l = mesh.replicate(vecs)
+            dd, gg = zip(*(backend_mod.knn_topk(
+                vecs_l[me], st.vx_emb[:vw], st.vx_gid[:vw],
+                st.vx_vtype[:vw], st.vx_create[:vw], st.vx_delete[:vw],
+                t["start_vt"], ts_r[me], KMAX, backend=backend)
+                for me, (st, t) in enumerate(zip(sts, T))))
+            ads, ags = mesh_mod.all_gather(list(dd)), mesh_mod.all_gather(
+                list(gg))
+            for me, t in enumerate(T):
+                gsel = _knn_merge(ads[me], ags[me], R)[:, :KMAX]
+                seeds_ok = (t["nmask"][:, None]
+                            & (t["colk"] < t["kvec"][:, None])
+                            & (gsel != I32MAX) & valid_l[me][:, None]
+                            & ((gsel % S) == me))
+                seg_n = torch.where(seeds_ok, t["unit_ids"][:, None], R)
+                cands[me] = (torch.cat([cands[me][0], seg_n.reshape(-1)]),
+                             torch.cat([cands[me][1], torch.where(
+                                 seeds_ok, gsel, PAD).reshape(-1)]))
+        seg, gid = [], []
+        for me, (cs, cg) in enumerate(cands):
+            sg, gd, fu, fs = _dedup_pairs(cs, cg, cs < R, R, F, FS, backend)
+            failed_r[me] = failed_r[me] | fu | fs
+            shared_r[me] = shared_r[me] | fs
+            seg.append(sg)
+            gid.append(gd)
+
+        for w in range(len(waves_np)):
+            live = [sg < R for sg in seg]
+            act_s = [t["waves"][w]["act"][torch.clamp(sg, max=R).long()]
+                     for sg, t in zip(seg, T)]
+            # 1) batched RPCs (bucket drops are a shared-capacity casualty)
+            a_s, a_g, fr = _route_flat(seg, gid, [lv & a for lv, a in
+                                                  zip(live, act_s)], S, SB, R)
+            for me, (st, t) in enumerate(zip(sts, T)):
+                wave = t["waves"][w]
+                # parked pairs stay put until the final routing
+                parked = live[me] & ~act_s[me]
+                parts_s = [torch.where(parked, seg[me], R)]
+                parts_g = [torch.where(parked, gid[me], PAD)]
+                seg_a, gid_a, fu, fs = _dedup_pairs(
+                    a_s[me], a_g[me], a_s[me] < R, R, F, FS, backend)
+                failed_r[me] = failed_r[me] | fr[me] | fu | fs
+                shared_r[me] = shared_r[me] | fr[me] | fs
+                live_a = seg_a < R
+                segc_a = torch.clamp(seg_a, max=R).long()
+                # 2) owner-side pending checks (the previous hop's)
+                alive = live_a & _check_flat(
+                    st, torch.where(live_a, gid_a // S, 0), live_a,
+                    ts_x[me][segc_a], wave["tvt_x"][segc_a], wave["preds"],
+                    segc_a)
+                lo_r, hi_r = _seg_windows(seg_a, R)
+                # 3) worker step: my CSR block + delta log
+                for direction, dmask, present in (
+                        ("out", wave["is_out"], wave["any_out"]),
+                        ("in", ~wave["is_out"], wave["any_in"])):
+                    if not present:
+                        continue
+                    m = alive & wave["act"][segc_a] & dmask[segc_a]
+                    indptr, nbr, typ, ecre, edel = edges_mod._csr_arrays(
+                        st, direction)
+                    delta = edges_mod._delta_arrays(st, direction)
+                    slot = torch.where(m, gid_a // S, 0)
+                    start = indptr[slot]
+                    deg = (indptr[slot + 1] - indptr[slot]) * m
+                    segdeg = torch.zeros((R + 1,), dtype=torch.int32,
+                                         device=deg.device).index_add_(
+                        0, segc_a, deg)
+                    failed_r[me] = failed_r[me] | (segdeg[:R] > E)
+                    es_f = _flag_segs(t["zero_r"], m & (torch.cumsum(
+                        deg, 0, dtype=torch.int32) > ES), segc_a, R)
+                    failed_r[me] = failed_r[me] | es_f
+                    shared_r[me] = shared_r[me] | es_f
+                    out_n, item = _expand_flat(
+                        start, deg, (nbr, typ, ecre, edel),
+                        wave["etype_x"][segc_a], ts_x[me][segc_a], ES,
+                        backend)
+                    out_s = torch.where(out_n >= 0,
+                                        segc_a[item].to(torch.int32), R)
+                    # my delta block is one shard: window [:dwin]; my pairs
+                    # all live here, so gid // S is the local slot and stays
+                    # ascending within each segment's run
+                    dslot, dnbr, dtyp, dcre, ddel = (a[:dwin] for a in delta)
+                    ds, dn = _delta_flat(
+                        torch.where(live_a, gid_a // S, PAD), m, lo_r, hi_r,
+                        dslot, dnbr, dtyp, dcre, ddel, wave["etype"],
+                        ts_r[me], R, backend)
+                    parts_s += [out_s, ds]
+                    parts_g += [out_n, dn]
+                cand_s = torch.cat(parts_s)
+                cand_g = torch.cat(parts_g)
+                seg[me], gid[me], fu, fs = _dedup_pairs(
+                    cand_s, cand_g, cand_s < R, R, F, FS, backend)
+                failed_r[me] = failed_r[me] | fu | fs
+                shared_r[me] = shared_r[me] | fs
+
+        # ---- finalize: route all, owed checks, merge, aggregate -----------
+        a_s, a_g, fr = _route_flat(seg, gid, [sg < R for sg in seg], S, SB,
+                                   R)
+        fin = []
+        for me, (st, t) in enumerate(zip(sts, T)):
+            sg, gd, fu, fs = _dedup_pairs(a_s[me], a_g[me], a_s[me] < R, R,
+                                          F, FS, backend)
+            failed_r[me] = failed_r[me] | fr[me] | fu | fs
+            shared_r[me] = shared_r[me] | fr[me] | fs
+            live = sg < R
+            segc = torch.clamp(sg, max=R).long()
+            live = live & _check_flat(
+                st, torch.where(live, gd // S, 0), live, ts_x[me][segc],
+                t["fin_tvt_x"][segc], t["fin_preds"], segc)
+            # the intersect-merge is shard-local (one owner a gid)
+            if has_star:
+                qf, gf, live = _merge_flat(sg, gd, live, t["row2q_x"],
+                                           t["nbr_x"], Q, FS, backend)
+            else:
+                qf, gf = torch.clamp(sg, max=Q), gd
+            qc = torch.clamp(qf, max=Q).long()
+            ts_qx = torch.cat([ts_l[me], ts_l[me].new_zeros((1,))])
+            if t["final_preds"]:
+                live = live & _check_flat(
+                    st, torch.where(live, gf // S, 0), live, ts_qx[qc],
+                    torch.full(qc.shape, -1, dtype=torch.int32,
+                               device=qc.device), t["final_preds"], qc)
+            cur_x = torch.cat([cur_l[me], cur_l[me].new_full((1,), -1)])
+            live = live & (gf > cur_x[qc])      # gid-cursor continuations
+            fin.append((qf, gf, live,
+                        _segment_count(failed_r[me], t["row2q"], Q),
+                        _segment_count(shared_r[me], t["row2q"], Q)))
+        out = {"failed_q": mesh_mod.psum([x[3] for x in fin])[0] > 0,
+               "shared_q": mesh_mod.psum([x[4] for x in fin])[0] > 0}
+        if terminal == "count":
+            out["counts"] = mesh_mod.psum([
+                _segment_count(lv, torch.where(lv, qf, Q), Q)
+                for qf, _, lv, _, _ in fin])[0]
+            return out
+        # select: rows shard-major, each at its query's snapshot
+        out.update(select_shard_major(
+            sts, cfg, [(torch.where(lv, qf, _NULL), torch.where(lv, gf, _NULL),
+                        lv) for qf, gf, lv, _, _ in fin], ts_l, Q, K, select))
         return out
 
     _cache_put(key, run)

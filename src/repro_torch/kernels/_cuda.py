@@ -31,7 +31,8 @@ SOURCES = ("sorted_lookup", "edge_expand", "dedup_compact", "sort_pairs",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"searchsorted_left_ranged": 0, "expand": 0,
+LAUNCHES = {"searchsorted_left_ranged": 0, "searchsorted_left": 0,
+            "expand": 0,
             "dedup_compact_rows": 0, "sort_rows": 0, "sort_pairs": 0,
             "knn_topk": 0}
 

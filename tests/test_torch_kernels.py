@@ -50,6 +50,8 @@ def _jit(fn, *static, **fixed):
 J_RANGED = _jit(jsk.searchsorted_left_ranged, block_q=16, block_k=128,
                 interpret=True)
 J_RANGED_REF = _jit(jsref.searchsorted_left_ranged)
+J_LEFT = _jit(jsk.searchsorted_left, block_q=16, block_k=128, interpret=True)
+J_LEFT_REF = _jit(jsref.searchsorted_left)
 J_PLAN = _jit(jeref.plan, "tile", "cap_tiles")
 J_EXPAND_REF = _jit(jeref.expand, "tile", "cap_tiles")
 J_EXPAND = _jit(jek.expand, "tile", "cap_tiles", interpret=True)
@@ -92,6 +94,26 @@ def test_searchsorted_left_ranged_matches_pallas_and_ref():
         _t(args[0]), _t(args[1][ok]), _t(args[2][ok]), block=blk,
         backend=backend_mod.REF)
     assert torch.equal(blocked, got[ok])
+
+
+@pytest.mark.parametrize("n,q", [(300, 40), (1, 1), (129, 7)])
+def test_searchsorted_left_matches_pallas_and_ref(n, q):
+    """The flat probe: a sorted block with duplicates and INT32_MAX pads
+    (empty index slots), queries below, above and equal to keys, INT32_MAX
+    queries; N not a power of two, N = 1, Q = 1."""
+    rng = np.random.default_rng(n)
+    keys = np.sort(rng.integers(-1000, 1000, n))
+    keys[n // 2:n // 2 + n // 5] = keys[n // 2]            # duplicates
+    keys = np.sort(keys)
+    keys[n - n // 7:] = I32MAX                              # pads
+    qs = rng.integers(-1100, 1100, q)
+    qs[:4] = [I32MAX, -2**31, keys[0], keys[-1]][:q]
+    k, qq = (a.astype(np.int32) for a in (keys, qs))
+    got = sk.searchsorted_left(_t(k), _t(qq))
+    _eq(got, J_LEFT(jnp.asarray(k), jnp.asarray(qq)))
+    _eq(got, J_LEFT_REF(jnp.asarray(k), jnp.asarray(qq)))
+    assert torch.equal(got, backend_mod.searchsorted(
+        _t(k), _t(qq), backend=backend_mod.REF))
 
 
 @pytest.mark.parametrize("n_pools,cap_extra,pallas", [(4, 5, True),

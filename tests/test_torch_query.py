@@ -182,16 +182,21 @@ def test_loader_store_counts_match_set_computation():
 
 
 def test_port_rejects_later_slices(dbs):
-    """Only ``mesh=`` (the SPMD executors) is still a later slice: the
-    shared frontier runs (``test_torch_shared``), and so does Nearest
-    (``test_torch_vector``)."""
+    """Every path of ``GraphDB.query`` runs now (the shared frontier in
+    ``test_torch_shared``, Nearest in ``test_torch_vector``, ``mesh=`` in
+    ``test_torch_spmd``); what still raises is a ``mesh=`` that is not a
+    ``ShardMesh`` (one process per GPU is a later slice) or whose size is
+    not the store's shard count."""
+    from repro_torch.dist.mesh import make_mesh
     _, db = dbs["mutated"]
     res = db.query([q_chain(0)], budget="shared")
     assert res.counts is not None and res.shared_ovf_q is not None
-    with pytest.raises(NotImplementedError, match="SPMD"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         db.query([q_chain(0)], mesh=object())
-    with pytest.raises(NotImplementedError, match="SPMD"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         db.query([q_chain(0)], mesh=object(), budget="shared")
+    with pytest.raises(ValueError, match="shards"):
+        db.query([q_chain(0)], mesh=make_mesh(2, device="cpu"))
 
 
 def test_no_gpu_no_fallback():
