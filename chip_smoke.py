@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's A1 read path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's A1 read path and LM serving path on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py            # the whole run (one GPU, ~10 minutes)
     python3 chip_smoke.py --quick    # build and check the kernels only
@@ -10,7 +11,9 @@ Phases, each printed on its own line:
   2. build — the CUDA kernels under ``src/repro_torch/csrc``, one ``nvcc``
      each, in parallel;
   3. kernel checks — every kernel against its plain PyTorch version on the
-     card at edge-case shapes (exact equality, floats compared as bits);
+     card at edge-case shapes (the int kernels and ``knn_topk`` exactly,
+     floats compared as bits; ``rmsnorm_fwd`` and ``flash_fwd`` within the
+     tolerances stated beside their checks);
   4. load — one shard of the a1-kg paper-scale config (one A1 machine's
      share of the §6 graph) filled by the port's film-KG loader;
   5. serve — 64-query batches of the a1-kg shape cells (serve_q1 2-hop,
@@ -31,19 +34,25 @@ Phases, each printed on its own line:
      budget modes: equal to ``backend="ref"`` bit for bit, shared mode
      holding its contract, and every query flagged by neither run equal to
      the local path on the same store; the first two stores are freed first;
-  9. kernels — each kernel at the inputs the main path gave it: its
-     launches during phases 5-8, its time beside the plain version's, the
+  9. lm — h2o-danube-3-4b at full width (24 layers, d_model 3840, GQA
+     32/8, window 4096) with weights drawn from a seed: ``lm/check_f32``
+     (float32 ``forward`` on the kernel path against ``backend="ref"``),
+     ``lm/decode_consistency`` (decode steps against ``forward``, and a
+     ring that wraps), ``lm/prefill_32k`` and ``lm/decode_32k`` in bf16,
+     timed, each checked against ``backend="ref"``;
+ 10. kernels — each kernel at the inputs the main path gave it: its
+     launches during phases 5-9, its time beside the plain version's, the
      bound and a library call, as one JSON line;
- 10. small reference — small stores against plain set computations and a
+ 11. small reference — small stores against plain set computations and a
      numpy k-NN in the kernels' summation order, on one shard and on a
      4-shard mesh.
 
-Each of phases 5-8 sets the kernels' launch counts to 0 just before its
-timed batches (per budget mode) and reads them just after.  Any failed
-check raises, so the script exits non-zero.  The last line is ``{"ok":
-true, "device": {...}}``.  Without a CUDA device it exits 1 before printing
-any result.  ``--rehearse`` runs phases 4-8 and 10 at a tiny size on the CPU
-(plain kernel versions, no build) and then exits 1.
+Each of phases 5-9 sets the kernels' launch counts to 0 just before its
+timed batches or calls (per budget mode or cell) and reads them just after.
+Any failed check raises, so the script exits non-zero.  The last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 before
+printing any result.  ``--rehearse`` runs phases 4-9 and 11 at a tiny size
+on the CPU (plain kernel versions, no build) and then exits 1.
 """
 from __future__ import annotations
 
@@ -84,6 +93,22 @@ A1_MESH_CAPS = dict(A1_CAPS, bucket=4096)
 KG_MESH = dict(n_films=14_000_000, n_actors=40_000_000,
                n_directors=4_000_000, n_genres=64)
 MESH_REDUCED = ("n_shards 256 -> 4", "bucket 256 -> 4096")
+# the LM phase: h2o-danube-3-4b FULL (src/repro/configs/h2o_danube_3_4b.py)
+# and its prefill_32k / decode_32k cells (configs/registry.py:87-104)
+BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
+# f32_seq runs past the window, so that the f32 check's mask drops keys
+LM_FULL = dict(f32_seq=4096 + 512, consist=(2, 256), ring=(2, 64, 96),
+               prefill_batch=1, decode_steps=16)
+LM_REHEARSE = dict(f32_seq=64, consist=(2, 40), ring=(2, 8, 24),
+                   prefill_batch=1, decode_steps=3, seq=96, decode_batch=4)
+# float32 model outputs, kernel path against backend="ref" or decode
+# against forward: max |a - b| over max |b|.  Each op rounds at ~1e-7
+# relative, sums of up to 10,240 terms reach ~1e-5, 24 layers add up.
+LM_F32_TOL = 1e-3
+# bfloat16 model outputs, the same measure: the kernels' outputs equal the
+# plain ones up to a bf16 rounding (one ulp, 2**-8 relative), and every
+# such difference passes through the later layers' bf16 matmuls.
+LM_BF16_TOL = 3e-2
 
 KERNELS = {   # wrapper -> (source, the TPU kernel's pallas_call it replaces)
     "searchsorted_left_ranged": (
@@ -101,13 +126,26 @@ KERNELS = {   # wrapper -> (source, the TPU kernel's pallas_call it replaces)
                    "src/repro/kernels/dedup_compact/kernel.py:181"),
     "knn_topk": ("src/repro_torch/csrc/knn_topk.cu",
                  "src/repro/kernels/knn_topk/kernel.py:144"),
+    "rmsnorm_fwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/kernel.py:33"),
+    "flash_fwd": ("src/repro_torch/csrc/flash_fwd.cu",
+                  "src/repro/kernels/flash_attention/kernel.py:107"),
 }
+LM_KERNELS = ("rmsnorm_fwd", "flash_fwd")
 # the main path each kernel belongs to: phase 5's per-query serve, phase
-# 6's shared serve, phase 7's nearest serve or phase 8's mesh serve
+# 6's shared serve, phase 7's nearest serve, phase 8's mesh serve or phase
+# 9's LM prefill
 PATH_OF = {"searchsorted_left_ranged": "per_query", "expand": "per_query",
            "dedup_compact_rows": "per_query", "sort_rows": "per_query",
            "sort_pairs": "shared", "knn_topk": "nearest",
-           "searchsorted_left": "mesh"}
+           "searchsorted_left": "mesh", "rmsnorm_fwd": "lm_prefill",
+           "flash_fwd": "lm_prefill"}
+# float kernels: (rtol, atol) of the kernel against its plain version, per
+# output and input dtype (see _check_rmsnorm and _check_flash)
+FLOAT_TOL = {"rmsnorm_fwd": {"float32": [(1e-5, 1e-5)],
+                             "bfloat16": ["ulp"]},
+             "flash_fwd": {"float32": [(2e-5, 2e-5), (1e-5, 1e-5)],
+                           "bfloat16": [(2 ** -7, 1e-4), (1e-5, 1e-5)]}}
 
 
 def say(tag: str, **kw) -> None:
@@ -276,6 +314,13 @@ def phase_kernel_checks():
     n_cases += _check_knn_topk(rng, t)
     torch.cuda.synchronize()
     say("KERNEL_CHECKS", cases=n_cases, equal=True)
+    errs = {"rmsnorm_fwd": _check_rmsnorm(dev), "flash_fwd": _check_flash(dev)}
+    torch.cuda.synchronize()
+    say("KERNEL_CHECKS_FLOAT", cases={k: len(v) for k, v in errs.items()},
+        within_tolerance=True, max_abs_err={
+            k: {dt: max(e for d, e in v if d == dt) for dt in
+                ("float32", "bfloat16")} for k, v in errs.items()},
+        tolerance=FLOAT_TOL)
 
 
 def _check_searchsorted_left(rng, t) -> int:
@@ -399,6 +444,106 @@ def _check_knn_topk(rng, t) -> int:
     return len(cases)
 
 
+def _close(a, b, what, tol) -> float:
+    """``a`` within ``tol`` of ``b`` everywhere (one shape and dtype):
+    ``(rtol, atol)``, or ``"ulp"`` for at most one bf16 ulp apart (the bit
+    patterns of same-signed values differ by at most 1).  NaN never passes.
+    Returns the largest absolute difference."""
+    import torch
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"{what}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+    if a.numel() == 0:
+        return 0.0
+    err = (a.double() - b.double()).abs()
+    if tol == "ulp":
+        steps = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+        ok = (steps <= 1) | (err == 0)
+    else:
+        rtol, atol = tol
+        ok = err <= atol + rtol * b.double().abs()
+    bad = int((~ok).sum())
+    check(bad == 0, f"{what}: {bad} of {a.numel()} values outside {tol} "
+          f"(max abs err {float(err.max())})")
+    return float(err.max())
+
+
+def _float_tol(name, dtype):
+    return FLOAT_TOL[name][str(dtype).replace("torch.", "")]
+
+
+def _check_rmsnorm(dev):
+    """rmsnorm_fwd against its plain version: f32 within 1e-5 (the sum of
+    squares in another order), bf16 within one ulp (both round one f32
+    value); widths that are and are not a multiple of the 16-byte vector
+    (1001),
+    one row (decode at batch 1), 4,096 rows, and a row base off the vector
+    alignment (the scalar path).  Returns [(dtype, max abs err)]."""
+    import torch
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        for d in (120, 128, 1000, 1001, 3840):
+            for n, offset in ((1, 0), (7, 0), (4096, 0), (7, 1)):
+                buf = torch.randn(n * d + offset, generator=gen, device=dev)
+                x = buf.to(dt)[offset:].view(n, d)
+                scale = (1 + 0.1 * torch.randn(d, generator=gen,
+                                               device=dev)).to(dt)
+                err = _close(rk.rmsnorm_fwd(x, scale),
+                             rk.rmsnorm_fwd_plain(x, scale),
+                             f"rmsnorm_fwd {dt} n={n} d={d} off={offset}",
+                             _float_tol("rmsnorm_fwd", dt)[0])
+                out.append((str(dt).replace("torch.", ""), err))
+    return out
+
+
+# (B, Hkv, G, Sq, Sk, D, causal, window, q_offset)
+FLASH_CASES = (
+    (2, 2, 1, 256, 256, 64, True, 0, 0),          # causal, one q head a kv
+    (1, 2, 4, 256, 256, 32, True, 0, 0),          # GQA
+    (1, 2, 4, 300, 300, 120, True, 128, 0),       # ragged tails, window
+    (1, 2, 4, 4096, 4096, 120, True, 128, 0),     # window empties kv tiles
+    (1, 1, 4, 4096, 4096, 128, True, 4096, 0),    # window = causal
+    (1, 1, 4, 32768, 32768, 120, True, 4096, 0),  # the main path's mask
+    (1, 2, 1, 200, 200, 64, False, 0, 0),         # bidirectional
+    (1, 2, 4, 100, 170, 120, False, 128, 0),      # window, not causal
+    (1, 2, 4, 64, 4160, 120, True, 4096, 4096),   # q_offset, Sq < Sk
+    (2, 1, 4, 1, 4097, 120, True, 4096, 4096),    # one decode row
+    (1, 2, 1, 17, 17, 32, True, 0, 0),            # Sq < one block
+    (1, 1, 4, 10, 20, 64, False, 50, 100),        # rows with no live key
+)
+
+
+def _check_flash(dev):
+    """flash_fwd against its plain version, out and lse: f32 within 2e-5
+    and 1e-5 (the JAX kernel tests' tolerances); bf16 out within one bf16
+    ulp (rtol 2**-7: both round once an f32 value that differs only in the
+    last bits) plus atol 1e-4 for outputs near 0, where the f32 sums'
+    rounding exceeds an ulp, and lse within 1e-5 (computed in f32 from the
+    same inputs).  Returns [(dtype, max abs err)]."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        tol = _float_tol("flash_fwd", dt)
+        for B, Hkv, G, Sq, Sk, D, causal, window, qo in FLASH_CASES:
+            if Sq > 4096 and dt == torch.float32:
+                continue                      # the main path runs bf16
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                       for shape in ((B * Hkv * G, Sq, D), (B * Hkv, Sk, D),
+                                     (B * Hkv, Sk, D)))
+            kw = dict(causal=causal, window=window, scale=D ** -0.5,
+                      q_offset=qo)
+            got, want = fk.flash_fwd(q, k, v, **kw), \
+                fk.flash_fwd_plain(q, k, v, **kw)
+            what = f"flash_fwd {dt} {(B, Hkv, G, Sq, Sk, D, causal, window, qo)}"
+            err = max(_close(got[0], want[0], what + " out", tol[0]),
+                      _close(got[1], want[1], what + " lse", tol[1]))
+            out.append((str(dt).replace("torch.", ""), err))
+    return out
+
+
 class Recorder:
     """Wraps the kernel wrappers the backend calls, keeping the inputs of
     the largest call of each (by the work it asks for)."""
@@ -407,12 +552,15 @@ class Recorder:
         from repro_torch.kernels.dedup_compact import kernel as dk
         from repro_torch.kernels.edge_expand import kernel as ek
         from repro_torch.kernels.knn_topk import kernel as kk
+        from repro_torch.kernels.flash_attention import kernel as fk
+        from repro_torch.kernels.rmsnorm import kernel as rk
         from repro_torch.kernels.sorted_lookup import kernel as sk
         self.best = {}
         self.mods = {"searchsorted_left_ranged": sk, "expand": ek,
                      "dedup_compact_rows": dk, "sort_rows": dk,
                      "sort_pairs": dk, "knn_topk": kk,
-                     "searchsorted_left": sk}
+                     "searchsorted_left": sk, "rmsnorm_fwd": rk,
+                     "flash_fwd": fk}
         self.only = None          # record just these wrappers (None: all)
         self.orig = {n: getattr(m, n) for n, m in self.mods.items()}
         for name, mod in self.mods.items():
@@ -425,7 +573,9 @@ class Recorder:
             "dedup_compact_rows": lambda a, kw: a[0].numel(),
             "sort_rows": lambda a, kw: a[0].numel(),
             "sort_pairs": lambda a, kw: a[0].numel(),
-            "knn_topk": lambda a, kw: a[0].shape[0] * a[1].shape[0]}
+            "knn_topk": lambda a, kw: a[0].shape[0] * a[1].shape[0],
+            "rmsnorm_fwd": lambda a, kw: a[0].numel(),
+            "flash_fwd": lambda a, kw: a[0].numel() * a[1].shape[1]}
 
     def _wrap(self, name, fn):
         def rec(*args, **kw):
@@ -948,20 +1098,28 @@ OWN_KERNELS = ("searchsorted_left_ranged_kernel", "searchsorted_left_kernel",
                "expand_kernel",
                "dedup_compact_rows_kernel", "sort_rows_kernel",
                "chunk_sort_kernel", "global_step_kernel",
-               "chunk_merge_kernel", "knn_chunk_kernel", "knn_merge_kernel")
+               "chunk_merge_kernel", "knn_chunk_kernel", "knn_merge_kernel",
+               "rmsnorm_fwd_kernel", "flash_fwd_kernel")
 
 
 def phase_profile(db, cell, qs, p50_s, **kw):
     """Device busy time and kernel launches of one fused batch (profiler):
-    the share of it in the port's own kernels, and the busy time against
-    the profiled batch's wall time and the unprofiled p50 latency.  The
-    whole table goes to ``chiprun_out/profile_<cell>.txt``."""
+    see :func:`_profile`."""
+    _profile(cell, lambda: db.query(qs, backend="kernel", **kw), p50_s)
+
+
+def _profile(cell, fn, p50_s, **extra):
+    """Device busy time and kernel launches of one call of ``fn``
+    (profiler): the share of it in the port's own kernels, and the busy
+    time against the profiled call's wall time and the unprofiled p50
+    latency.  The whole table goes to ``profile_<cell>.txt`` in the output
+    directory."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        db.query(qs, backend="kernel", **kw)
+        fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     kern = _device_events(prof)
@@ -983,7 +1141,279 @@ def phase_profile(db, cell, qs, p50_s, **kw):
         idle_share_profiled=1.0 - busy_us / 1e6 / wall_s,
         busy_over_p50=busy_us / 1e6 / p50_s,
         top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
-             for e in top])
+             for e in top], **extra)
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: h2o-danube-3-4b
+# ---------------------------------------------------------------------------
+
+def _lm_weights(cfg, dev, seed: int):
+    """Weights by the JAX init law from a fixed generator on ``dev``, then
+    ``embed`` <- N(0, 1) and the ln scales <- 1 + 0.1 N(0, 1).  The law
+    gives ``embed`` all ones (its rule for leaves whose last axis is
+    d_model), under which the output does not depend on the tokens: a wrong
+    embedding gather, or any prompt, would pass every check below."""
+    import torch
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = T.init_params(cfg, gen, device=dev)
+    p["embed"] = torch.randn(p["embed"].shape, generator=gen,
+                             device=dev).to(cfg.dtype)
+    for t in [p["ln_f"]] + [b[n] for b in p["blocks"] for n in ("ln1",
+                                                                 "ln2")]:
+        t.copy_(1 + 0.1 * torch.randn(t.shape, generator=gen, device=dev))
+    return p
+
+
+def _lm_tokens(cfg, dev, batch: int, seq: int, seed: int):
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import _synth_batch
+    return torch.as_tensor(_synth_batch(np.random.default_rng(seed), batch,
+                                        seq, cfg.vocab), device=dev)
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| / max |b| (NaN if either has a non-finite value)."""
+    import torch
+    if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+        return float("nan")
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _same_argmax(a, b, tol_abs: float, what: str) -> int:
+    """Row by row, the same argmax, or a tie within ``tol_abs`` in both
+    (two logits that close are as likely to swap under a bf16 rounding).
+    Returns the rows whose argmax differs."""
+    import torch
+    ia, ib = a.argmax(-1), b.argmax(-1)
+    rows = torch.arange(a.shape[0], device=a.device)
+    diff = ia != ib
+    gap = torch.maximum((a[rows, ia] - a[rows, ib]).abs(),
+                        (b[rows, ia] - b[rows, ib]).abs())
+    check(not bool((diff & (gap > tol_abs)).any()),
+          f"{what}: argmax differs beyond a tie within {tol_abs}")
+    return int(diff.sum())
+
+
+def _lm_launch_check(launches, path, want: dict, calls: int, dev):
+    if dev.type != "cuda":
+        return
+    for name, n in want.items():
+        check(launches[path][name] == n * calls,
+              f"{path}: {name} launched {launches[path][name]} times in "
+              f"{calls} calls, not {n} a call")
+
+
+def phase_lm_f32(dev, cfg, sizes):
+    """``lm/check_f32``: the full-width model in float32, ``forward`` over
+    more positions than the window on the kernel path against
+    ``backend="ref"``; then
+    ``lm/decode_consistency``: every decode step from an empty cache against
+    ``forward`` at that position, and a 2-layer model whose window-sized
+    ring wraps."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as T
+    check(sizes["f32_seq"] > cfg.window, "lm/check_f32 inside the window")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p = _lm_weights(cfg32, dev, 0)
+    toks = _lm_tokens(cfg, dev, 1, sizes["f32_seq"], 10)
+    t0 = time.perf_counter()
+    lk, _ = T.forward(p, cfg32, toks, backend="kernel")
+    _sync(dev)
+    k_s = time.perf_counter() - t0
+    lr, _ = T.forward(p, cfg32, toks, backend="ref")
+    err = _rel_err(lk, lr)
+    check(err <= LM_F32_TOL, f"lm/check_f32: kernel vs ref {err}")
+    check(lk.shape == (1, sizes["f32_seq"], cfg.vocab), "lm/check_f32 shape")
+    other, _ = T.prefill(p, cfg32, _lm_tokens(cfg, dev, 1,
+                                              sizes["f32_seq"], 11))
+    moved = float((other - lk[:, -1]).abs().max())
+    check(moved > 1e-2, "lm/check_f32: another prompt, the same logits")
+    say("LM_CHECK", cell="lm/check_f32", dtype="float32", batch=1,
+        seq=sizes["f32_seq"], layers=cfg.n_layers, rel_err=err,
+        tolerance=LM_F32_TOL, forward_kernel_s=k_s,
+        other_prompt_max_abs_diff=moved)
+    del lk, lr, other
+
+    B, n = sizes["consist"]
+    toks = _lm_tokens(cfg, dev, B, n, 12)
+    full, _ = T.forward(p, cfg32, toks)
+    cache = T.init_kv_cache(cfg32, B, n, device=dev)
+    worst = 0.0
+    for t in range(n):
+        lg, cache = T.decode_step(p, cfg32, toks[:, t:t + 1], cache, t)
+        worst = max(worst, _rel_err(lg, full[:, t]))
+    check(worst <= LM_F32_TOL, f"lm/decode_consistency: {worst}")
+    del p, full, cache
+    layers, window, steps = sizes["ring"]
+    cfg_r = dataclasses.replace(cfg32, n_layers=layers, window=window)
+    p = _lm_weights(cfg_r, dev, 1)
+    toks = _lm_tokens(cfg, dev, B, steps, 13)
+    full, _ = T.forward(p, cfg_r, toks)
+    cache = T.init_kv_cache(cfg_r, B, steps, device=dev)
+    check(cache[0][0].shape[3] == window, "ring: cache is not window-sized")
+    ring = 0.0
+    for t in range(steps):
+        lg, cache = T.decode_step(p, cfg_r, toks[:, t:t + 1], cache, t)
+        ring = max(ring, _rel_err(lg, full[:, t]))
+    check(ring <= LM_F32_TOL, f"lm/decode_consistency ring: {ring}")
+    say("LM_CHECK", cell="lm/decode_consistency", dtype="float32", batch=B,
+        steps=n, rel_err=worst, ring=dict(layers=layers, window=window,
+                                          steps=steps, rel_err=ring),
+        tolerance=LM_F32_TOL)
+    del p, full, cache
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _attn_flops(cfg, batch: int, seq: int) -> float:
+    """4 * Hq * D flops a live (query, key) pair, every layer."""
+    live = _live_pairs(seq, seq, True, cfg.window, 0)
+    return 4.0 * cfg.n_heads * cfg.d_head * live * batch * cfg.n_layers
+
+
+def phase_lm_prefill(dev, cfg, p, sizes, launches, rec):
+    """``lm/prefill_32k``: the cell's 32,768 tokens in bf16, timed over 3
+    calls after a warm one, launches counted, then against
+    ``backend="ref"`` on the same prompts."""
+    import numpy as np
+    from repro_torch.configs.h2o_danube_3_4b import SHAPES
+    from repro_torch.configs.registry import cell
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import transformer as T
+    geo = cell(SHAPES, "prefill_32k").geometry
+    B, S = sizes["prefill_batch"], sizes.get("seq", geo["seq_len"])
+    toks = _lm_tokens(cfg, dev, B, S, 14)
+    T.prefill(p, cfg, toks)
+    _sync(dev)
+    _cuda.reset_launches()
+    rec.only = set(LM_KERNELS)
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        lk, _ = T.prefill(p, cfg, toks)
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+    rec.only = set()
+    launches["lm_prefill"] = dict(_cuda.LAUNCHES)
+    _lm_launch_check(launches, "lm_prefill", {
+        "rmsnorm_fwd": 2 * cfg.n_layers + 1, "flash_fwd": cfg.n_layers}, 3,
+        dev)
+    lr, _ = T.prefill(p, cfg, toks, backend="ref")
+    err = _rel_err(lk, lr)
+    check(lk.shape == (B, cfg.vocab) and err <= LM_BF16_TOL,
+          f"lm/prefill_32k: kernel vs ref {err}")
+    swapped = _same_argmax(lk, lr, LM_BF16_TOL * float(lr.abs().max()),
+                           "lm/prefill_32k")
+    p50 = float(np.median(secs))
+    flops = 2.0 * cfg.n_active_params() * B * S + _attn_flops(cfg, B, S)
+    reduced = [] if B == geo["global_batch"] else \
+        [f"global_batch {geo['global_batch']} -> {B}"]
+    say("LM_SERVE", cell="lm/prefill_32k", dtype=str(cfg.dtype), batch=B,
+        seq=S, reduced=reduced, p50_ms=p50 * 1e3,
+        ms=[x * 1e3 for x in secs], tokens_per_s=B * S / p50,
+        launches_per_call={k: launches["lm_prefill"][k] / 3
+                           for k in LM_KERNELS},
+        flops=flops, bf16_peak_share=flops / p50 / BF16_OPS_PER_S,
+        rel_err_vs_ref=err, tolerance=LM_BF16_TOL,
+        argmax_ties_swapped=swapped)
+    if dev.type == "cuda":
+        _profile("lm_prefill_32k", lambda: T.prefill(p, cfg, toks), p50)
+
+
+def phase_lm_decode(dev, cfg, p, sizes, launches):
+    """``lm/decode_32k``: the cell's batch (halved until the cache fits)
+    over a full ring cache (4,096 slots filled from a generator, as after
+    32,768 tokens), 16 greedy steps timed after a warm one, launches
+    counted, then one step against ``backend="ref"``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.h2o_danube_3_4b import SHAPES
+    from repro_torch.configs.registry import cell
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import transformer as T
+    geo = cell(SHAPES, "decode_32k").geometry
+    B, S = sizes.get("decode_batch", geo["global_batch"]), \
+        sizes.get("seq", geo["seq_len"])
+    Sc = T.cache_len(cfg, S)
+    per_seq = 2 * cfg.n_layers * cfg.n_kv_heads * Sc * cfg.d_head * 2
+    # the f32 copies of one layer's k and v in the decode attention
+    temp = 2 * cfg.n_kv_heads * Sc * cfg.d_head * 4
+    if dev.type == "cuda":
+        free = torch.cuda.mem_get_info()[0] - (4 << 30)
+        while B > 1 and B * (per_seq + temp) > free:
+            B //= 2
+    cache = T.init_kv_cache(cfg, B, S, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for k, v in cache:
+        k.normal_(generator=gen)
+        v.normal_(generator=gen)
+    pos = S - 1
+    tok = _lm_tokens(cfg, dev, B, 1, 15)
+    lg, cache = T.decode_step(p, cfg, tok, cache, pos)
+    tok = lg.argmax(-1, keepdim=True)
+    _sync(dev)
+    _cuda.reset_launches()
+    secs = []
+    for _ in range(sizes["decode_steps"]):
+        pos += 1
+        t0 = time.perf_counter()
+        lg, cache = T.decode_step(p, cfg, tok, cache, pos)
+        tok = lg.argmax(-1, keepdim=True)
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+    launches["lm_decode"] = dict(_cuda.LAUNCHES)
+    _lm_launch_check(launches, "lm_decode", {
+        "rmsnorm_fwd": 2 * cfg.n_layers + 1, "flash_fwd": 0},
+        sizes["decode_steps"], dev)
+    pos += 1
+    lk, cache = T.decode_step(p, cfg, tok, cache, pos)
+    lr, cache = T.decode_step(p, cfg, tok, cache, pos, backend="ref")
+    err = _rel_err(lk, lr)
+    check(lk.shape == (B, cfg.vocab) and err <= LM_BF16_TOL,
+          f"lm/decode_32k: kernel vs ref {err}")
+    swapped = _same_argmax(lk, lr, LM_BF16_TOL * float(lr.abs().max()),
+                           "lm/decode_32k")
+    p50 = float(np.median(secs))
+    cache_bytes = B * per_seq
+    weight_bytes = cfg.n_params() * 2
+    bound_s = (cache_bytes + weight_bytes) / HBM_BYTES_PER_S
+    reduced = [] if B == geo["global_batch"] else \
+        [f"global_batch {geo['global_batch']} -> {B}"]
+    say("LM_SERVE", cell="lm/decode_32k", dtype=str(cfg.dtype), batch=B,
+        cache_slots=Sc, start_pos=S - 1, steps=len(secs), reduced=reduced,
+        p50_ms=p50 * 1e3, ms=[x * 1e3 for x in secs],
+        tokens_per_s=B / p50, cache_bytes=cache_bytes,
+        weight_bytes=weight_bytes, bytes_bound_ms=bound_s * 1e3,
+        bytes_bound_share=bound_s / p50, rel_err_vs_ref=err,
+        tolerance=LM_BF16_TOL, argmax_ties_swapped=swapped,
+        memory_allocated=(torch.cuda.memory_allocated()
+                          if dev.type == "cuda" else None))
+    if dev.type == "cuda":
+        _profile("lm_decode_32k",
+                 lambda: T.decode_step(p, cfg, tok, cache, pos + 1), p50)
+    del cache
+
+
+def phase_lm(dev, cfg, sizes, launches, rec):
+    """Phase 9: the f32 checks, then prefill and decode in the config's
+    bf16 (the f32 weights are freed before the bf16 ones are made)."""
+    import torch
+    t0 = time.perf_counter()
+    phase_lm_f32(dev, cfg, sizes)
+    p = _lm_weights(cfg, dev, 4)
+    phase_lm_prefill(dev, cfg, p, sizes, launches, rec)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_lm_decode(dev, cfg, p, sizes, launches)
+    del p
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    say("LM_PHASE", seconds=time.perf_counter() - t0, config=cfg.name,
+        source="src/repro/configs/h2o_danube_3_4b.py")
 
 
 def phase_small_reference(dev):
@@ -1095,19 +1525,21 @@ def _events_ms(fn, n: int = 20) -> float:
     return a.elapsed_time(b) / n
 
 
-def _device_ms(fn, n: int = 10):
-    """Device busy time per call from the profiler (None if it saw none)."""
+def _device_ms(fn, n: int = 10) -> float:
+    """Device time per call: CUDA events recorded just before and just
+    after each of ``n`` calls, so the host's gaps between calls (which
+    ``ms`` includes when a call is shorter than its launch) are left out."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in _device_events(prof))
-    return us / 1e3 / n if us > 0 else None
+    marks = [tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+             for _ in range(n)]
+    for a, b in marks:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in marks) / n
 
 
 def _device_events(prof):
@@ -1119,7 +1551,7 @@ def _device_events(prof):
             and (e.self_device_time_total or 0) > 0]
 
 
-def _bound(name, args, kw, out):
+def _bound(name, args, kw):
     """Least time for the work on this run's inputs, and what bounds it:
     (ms, 'bytes' | 'operations')."""
     import math
@@ -1158,6 +1590,24 @@ def _bound(name, args, kw, out):
         # for every (row, entry, dim)
         nbytes = 4 * N * D + 16 * N + 4 * R * D + 8 * R + 8 * R * k
         ops = 2 * R * N * D
+    elif name == "rmsnorm_fwd":
+        # x read and y written once, the scale once; ~4 flops an element
+        x = args[0]
+        nbytes = (2 * x.numel() + x.shape[-1]) * x.element_size()
+        ops = 4 * x.numel()
+    elif name == "flash_fwd":
+        # q, k, v read and out written once, lse written; 4*D flops a live
+        # (query, key) pair at the bf16 tensor-core rate
+        q, k, _ = args
+        BHq, Sq, D = q.shape
+        live = _live_pairs(Sq, k.shape[1], kw["causal"], kw["window"],
+                           kw["q_offset"])
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+            + 4 * BHq * Sq
+        t_ops = 4.0 * D * BHq * live / BF16_OPS_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
     else:
         x = args[0]
         R, W = x.shape
@@ -1169,6 +1619,15 @@ def _bound(name, args, kw, out):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _live_pairs(Sq, Sk, causal, window, q_offset) -> int:
+    """(query, key) pairs a head that the mask leaves live."""
+    import numpy as np
+    qp = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qp, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros(Sq)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
 def _bits(ts):
     """Float tensors as their int32 bits (exact comparison, -0.0 != 0.0)."""
     import torch
@@ -1176,12 +1635,83 @@ def _bits(ts):
                  for t in ts)
 
 
+def _library_call(name, args, kw):
+    """(label, callable) of one PyTorch call computing the same function
+    on the same inputs, or None."""
+    import torch
+    from repro_torch.kernels.dedup_compact import ref as dref
+    if name == "sort_rows":
+        return "torch.sort", lambda: torch.sort(args[0], dim=1)
+    if name == "sort_pairs":
+        packed = dref.pack_pairs(*args)
+        return "torch.sort of the packed int64", lambda: torch.sort(packed)
+    if name == "searchsorted_left":
+        return "torch.searchsorted", lambda: torch.searchsorted(
+            args[0], args[1], out_int32=True)
+    if name == "searchsorted_left_ranged":
+        keys, q, lo, hi = args
+        if bool((lo == lo[0]).all()) and bool((hi == hi[0]).all()):
+            blk = keys[int(lo[0]):int(hi[0])]
+            return "torch.searchsorted, one block", lambda: \
+                torch.searchsorted(blk, q, out_int32=True)
+    if name == "rmsnorm_fwd" and hasattr(torch.nn.functional, "rms_norm"):
+        x, scale = args
+        return "F.rms_norm", lambda: torch.nn.functional.rms_norm(
+            x, (x.shape[-1],), scale, kw.get("eps", 1e-6))
+    if name == "flash_fwd":
+        return _sdpa_call(args, kw)
+    return None
+
+
+def _sdpa_call(args, kw, rows=None):
+    """F.scaled_dot_product_attention on flash_fwd's inputs (the first
+    ``rows`` positions, with ``is_causal`` there when the window covers
+    them; else the boolean mask), on a fused backend (flash or
+    memory-efficient: the math backend would hold every score), with
+    ``enable_gqa``, or with k and v repeated over the group where the
+    backend does not take it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    q, k, v = args
+    BHkv, Sk, D = k.shape
+    G = q.shape[0] // BHkv
+    if rows:
+        q, k, v = (t[:, :rows] for t in (q, k, v))
+        Sk = rows
+    q4, k4, v4 = (t.reshape(1, -1, t.shape[1], D) for t in (q, k, v))
+    causal_only = rows and kw["causal"] and kw["window"] >= Sk and \
+        kw["q_offset"] == 0
+    mask = None if causal_only else attention_mask(
+        q.shape[1], Sk, causal=kw["causal"], window=kw["window"],
+        q_offset=kw["q_offset"], device=q.device)
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+
+    def call(kk, vv, **gqa):
+        with sdpa_kernel(backends):
+            return F.scaled_dot_product_attention(
+                q4, kk, vv, attn_mask=mask, is_causal=bool(causal_only),
+                scale=kw["scale"], **gqa)
+    try:
+        call(k4, v4, enable_gqa=True)
+        label = "sdpa enable_gqa"
+        fn = lambda: call(k4, v4, enable_gqa=True)       # noqa: E731
+    except RuntimeError:
+        kr, vr = (t.repeat_interleave(G, dim=1) for t in (k4, v4))
+        label = "sdpa, k and v repeated"
+        fn = lambda: call(kr, vr)                       # noqa: E731
+    return (f"{label}, {'is_causal' if causal_only else 'bool mask'}, "
+            f"{q.shape[1]} rows"), fn
+
+
 def phase_kernel_report(launches, best):
     import torch
     from repro_torch.kernels.dedup_compact import kernel as dk
-    from repro_torch.kernels.dedup_compact import ref as dref
     from repro_torch.kernels.edge_expand import kernel as ek
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.knn_topk import kernel as kk
+    from repro_torch.kernels.rmsnorm import kernel as rk
     from repro_torch.kernels.sorted_lookup import kernel as sk
     fns = {"searchsorted_left_ranged": (sk.searchsorted_left_ranged,
                                         sk.searchsorted_left_ranged_plain),
@@ -1192,23 +1722,27 @@ def phase_kernel_report(launches, best):
                                   dk.dedup_compact_rows_plain),
            "sort_rows": (dk.sort_rows, dk.sort_rows_plain),
            "sort_pairs": (dk.sort_pairs, dk.sort_pairs_plain),
-           "knn_topk": (kk.knn_topk, kk.knn_topk_plain)}
+           "knn_topk": (kk.knn_topk, kk.knn_topk_plain),
+           "rmsnorm_fwd": (rk.rmsnorm_fwd, rk.rmsnorm_fwd_plain),
+           "flash_fwd": (fk.flash_fwd, fk.flash_fwd_plain)}
     # the kernels each path must have launched: its own, and the earlier
     # slices' kernels that serve it too
-    for path, names in (("shared", ("sort_pairs", "expand",
-                                    "searchsorted_left_ranged")),
-                        ("nearest", ("knn_topk", "dedup_compact_rows")),
-                        ("nearest_shared", ("knn_topk", "sort_pairs")),
-                        ("mesh", ("searchsorted_left", "expand",
-                                  "dedup_compact_rows", "sort_rows")),
-                        ("mesh_shared", ("searchsorted_left", "sort_pairs",
-                                         "expand",
-                                         "searchsorted_left_ranged"))):
-        for name in names:
+    for path, need in (("shared", ("sort_pairs", "expand",
+                                   "searchsorted_left_ranged")),
+                       ("nearest", ("knn_topk", "dedup_compact_rows")),
+                       ("nearest_shared", ("knn_topk", "sort_pairs")),
+                       ("mesh", ("searchsorted_left", "expand",
+                                 "dedup_compact_rows", "sort_rows")),
+                       ("mesh_shared", ("searchsorted_left", "sort_pairs",
+                                        "expand",
+                                        "searchsorted_left_ranged")),
+                       ("lm_decode", ("rmsnorm_fwd",))):
+        for name in need:
             check(launches[path][name] > 0,
                   f"{name} was not launched on the {path} path")
     rows = []
-    for name, (src, replaces) in KERNELS.items():
+    for name in KERNELS:
+        src, replaces = KERNELS[name]
         n_path = launches[PATH_OF[name]][name]
         check(n_path > 0, f"{name} was not launched on the main path")
         check(name in best, f"{name}: no main-path inputs recorded")
@@ -1218,26 +1752,20 @@ def phase_kernel_report(launches, best):
         ref = plain(*args, **kw)
         torch.cuda.synchronize()
         out_t, ref_t = list(_tensors([out])), list(_tensors([ref]))
-        _exact(_bits(out_t), _bits(ref_t), f"{name} at main-path inputs")
-        err = max(float((o.double() - r.double()).abs().nan_to_num(0).max())
-                  if o.numel() else 0.0 for o, r in zip(out_t, ref_t))
-        lib = None
-        if name == "sort_rows":
-            lib = lambda: torch.sort(args[0], dim=1)
-        elif name == "sort_pairs":
-            packed = dref.pack_pairs(*args)
-            lib = lambda: torch.sort(packed)
-        elif name == "searchsorted_left":
-            lib = lambda: torch.searchsorted(args[0], args[1],  # noqa: E731
-                                             out_int32=True)
-        elif name == "searchsorted_left_ranged":
-            keys, q, lo, hi = args
-            if bool((lo == lo[0]).all()) and bool((hi == hi[0]).all()):
-                blk = keys[int(lo[0]):int(hi[0])]
-                lib = lambda: torch.searchsorted(blk, q, out_int32=True)
-        bound_ms, bound_by = _bound(name, args, kw, out)
+        if name in FLOAT_TOL:
+            tols = _float_tol(name, out_t[0].dtype)
+            err = max(_close(o, r, f"{name} at main-path inputs", tol)
+                      for o, r, tol in zip(out_t, ref_t, tols))
+        else:
+            _exact(_bits(out_t), _bits(ref_t), f"{name} at main-path inputs")
+            err = max(float((o.double() - r.double()).abs().nan_to_num(0)
+                            .max()) if o.numel() else 0.0
+                      for o, r in zip(out_t, ref_t))
+        del out, ref, out_t, ref_t
+        lib = _library_call(name, args, kw)
+        bound_ms, bound_by = _bound(name, args, kw)
         shapes = [tuple(a.shape) for a in _tensors(args)][:3]
-        rows.append(dict(
+        row = dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(int(n[name]) for n in launches.values()),
             launches_by_path={p: int(n[name]) for p, n in launches.items()},
@@ -1245,9 +1773,21 @@ def phase_kernel_report(launches, best):
             ms=_events_ms(lambda: kern(*args, **kw)),
             plain_ms=_events_ms(lambda: plain(*args, **kw), n=5),
             bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=_events_ms(lib) if lib else None,
+            library_ms=_events_ms(lib[1]) if lib else None,
+            library=lib[0] if lib else None,
             device_ms=_device_ms(lambda: kern(*args, **kw)),
-            shapes=shapes))
+            shapes=shapes, dtype=str(args[0].dtype))
+        if name == "flash_fwd":
+            # the window mask equals the causal one over the first 4096
+            # positions: the fused causal attention's time there
+            S0 = min(4096, args[0].shape[1])
+            part = [t[:, :S0].contiguous() for t in args]
+            label, fn = _sdpa_call(part, kw, rows=S0)
+            row.update(ms_causal_4096=_events_ms(lambda: kern(*part, **kw)),
+                       library_causal_4096_ms=_events_ms(fn),
+                       library_causal_4096=label)
+        rows.append(row)
+        torch.cuda.empty_cache()
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -1256,11 +1796,12 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
     ap.add_argument("--rehearse", action="store_true",
-                    help="without a GPU: phases 4-8 and 10 at a tiny size "
+                    help="without a GPU: phases 4-9 and 11 at a tiny size "
                          "on the CPU, then exit 1")
     args = ap.parse_args(argv)
     import torch
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import h2o_danube_3_4b as danube
     if not torch.cuda.is_available():
         if not args.rehearse:
             print("chip_smoke: no CUDA device; nothing was run",
@@ -1279,6 +1820,10 @@ def main(argv=None) -> int:
                         MESH_REDUCED)
         phase_mesh(kg, dev, 1, launches, dict(A1_MESH_CAPS, frontier=256,
                                               expand=1024, bucket=256))
+        rec = Recorder()
+        rec.only = set()
+        phase_lm(dev, danube.REDUCED, LM_REHEARSE, launches, rec)
+        rec.restore()
         phase_small_reference(dev)
         print("chip_smoke: CPU rehearsal finished; no GPU result",
               file=sys.stderr)
@@ -1303,6 +1848,8 @@ def main(argv=None) -> int:
         phase_mesh(kg, dev, BATCHES, launches)
         del kg
         torch.cuda.empty_cache()
+        rec.only = set()                      # phase_lm records its own
+        phase_lm(dev, danube.FULL, LM_FULL, launches, rec)
         rec.restore()
         phase_kernel_report(launches, rec.best)
         phase_small_reference(dev)

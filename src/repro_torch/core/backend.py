@@ -1,5 +1,6 @@
 """Backend dispatch for the read hot path (edge enumeration, index probes,
-per-hop compaction, the shared frontier's pair sort, the k-NN probe).
+per-hop compaction, the shared frontier's pair sort, the k-NN probe) and
+for the transformer's RMSNorm and attention.
 
 Port of ``repro/core/backend.py``: the seam between the semantics layer
 (``core/edges.py``, ``core/index.py``, ``core/query/planner.py``) and the
@@ -10,10 +11,14 @@ hand-written kernels under ``repro_torch.kernels``.
     k-NN).  Defines the semantics.
   * ``kind="kernel"`` — the kernel path (tile plan -> ``edge_expand`` ->
     scatter, both ``sorted_lookup`` probes, ``dedup_compact``, ``sort_pairs``,
-    ``knn_topk``).  On CUDA tensors every
+    ``knn_topk``; the model's ``rmsnorm_fwd`` and ``flash_fwd``).  On CUDA
+    tensors every
     kernel wrapper launches its CUDA kernel or raises; on CPU tensors it runs
     that kernel's plain PyTorch version, as Pallas runs in interpret mode on
     a CPU, so the CPU tests cover the tile plans and scatters too.
+
+``models/attention.py::mha`` takes the same kinds (the ``ref`` kind there is
+the JAX package's chunked recurrence).
 
 Selection: an explicit ``backend=`` argument, else ``$REPRO_BACKEND``
 (``ref``/``kernel``/``auto``), else ``auto``, which is ``kernel``.  There is
@@ -34,6 +39,8 @@ from repro_torch.kernels.edge_expand import kernel as _expand_kernel
 from repro_torch.kernels.edge_expand import ref as _expand_ref
 from repro_torch.kernels.knn_topk import kernel as _knn_kernel
 from repro_torch.kernels.knn_topk import ref as _knn_ref
+from repro_torch.kernels.rmsnorm import ops as _rms_ops
+from repro_torch.kernels.rmsnorm import ref as _rms_ref
 from repro_torch.kernels.sorted_lookup import kernel as _lookup_kernel
 
 _VALID = ("ref", "kernel", "auto")
@@ -55,8 +62,27 @@ REF = Backend("ref")
 KERNEL = Backend("kernel")
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; ``None`` means ``cuda``, which raises
+    when no GPU is present (an entry point never carries on quietly on the
+    CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("the port's entry points default to "
+                               "device='cuda' and no CUDA device is "
+                               "available; pass device='cpu' to run on the "
+                               "CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def resolve(spec: Optional[str] = None) -> Backend:
-    """Resolve a backend name (or None: ``$REPRO_BACKEND``, then ``auto``)."""
+    """Resolve a backend name (or None: ``$REPRO_BACKEND``, then ``auto``);
+    a resolved :class:`Backend` is returned as it is."""
+    if isinstance(spec, Backend):
+        return spec
     name = spec or os.environ.get(ENV_VAR, "") or "auto"
     if name not in _VALID:
         raise ValueError(f"backend must be one of {_VALID}, got {name!r}")
@@ -150,3 +176,10 @@ def knn_topk(vecs, emb, gid, vtype, create, delete, q_vt, q_ts, k: int, *,
     if backend.is_kernel:
         return _knn_kernel.knn_topk(*args)
     return _knn_ref.knn_topk(*args)
+
+
+def rmsnorm(x, scale, *, backend: Backend, eps: float = 1e-6):
+    """RMSNorm over the last axis (f32 inside, x's dtype out)."""
+    if backend.is_kernel:
+        return _rms_ops.rmsnorm(x, scale, eps)
+    return _rms_ref.rmsnorm(x, scale, eps=eps)

@@ -21,6 +21,7 @@ import torch
 from repro_torch.core import edges as edges_mod
 from repro_torch.core import index as index_mod
 from repro_torch.core.addressing import StoreConfig
+from repro_torch.core.backend import resolve_device
 from repro_torch.core.catalog import Catalog, EdgeType, VertexType
 from repro_torch.core.store import (GraphStore, gather_data, make_store,
                                     store_from_numpy)
@@ -28,20 +29,6 @@ from repro_torch.core.store import (GraphStore, gather_data, make_store,
 
 class CapacityError(RuntimeError):
     pass
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device; ``None`` means ``cuda``, which raises
-    when no GPU is present."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("GraphDB defaults to device='cuda' and no "
-                               "CUDA device is available; pass "
-                               "device='cpu' to run on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 class GraphDB:

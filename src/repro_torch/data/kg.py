@@ -20,8 +20,9 @@ import torch
 from repro_torch.core import edges as edges_mod
 from repro_torch.core import index as index_mod
 from repro_torch.core.addressing import NULL, TS_INF, StoreConfig
+from repro_torch.core.backend import resolve_device
 from repro_torch.core.catalog import Catalog
-from repro_torch.core.graphdb import GraphDB, resolve_device
+from repro_torch.core.graphdb import GraphDB
 from repro_torch.core.store import GraphStore, make_store
 
 SCHEMA = (("v", "director", (), ("dob",)),

@@ -29,7 +29,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.addressing import StoreConfig
-from repro_torch.core.graphdb import resolve_device
+from repro_torch.core.backend import resolve_device
 from repro_torch.core.store import FIELDS, GraphStore
 
 

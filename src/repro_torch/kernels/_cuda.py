@@ -27,14 +27,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("sorted_lookup", "edge_expand", "dedup_compact", "sort_pairs",
-           "knn_topk")
+           "knn_topk", "rmsnorm", "flash_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"searchsorted_left_ranged": 0, "searchsorted_left": 0,
             "expand": 0,
             "dedup_compact_rows": 0, "sort_rows": 0, "sort_pairs": 0,
-            "knn_topk": 0}
+            "knn_topk": 0, "rmsnorm_fwd": 0, "flash_fwd": 0}
 
 _LIBS: dict = {}
 _FUNCS: dict = {}
@@ -112,6 +112,17 @@ def function(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
 def stream_of(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t) -> int:
+    """The C entry points' dtype code of a float kernel's input: 0 float32,
+    1 bfloat16."""
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if t.dtype not in codes:
+        raise ValueError(f"float kernels take float32 or bfloat16, got "
+                         f"{t.dtype}")
+    return codes[t.dtype]
 
 
 def check(rc: int, what: str) -> None:

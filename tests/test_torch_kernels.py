@@ -304,5 +304,9 @@ def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    pkg = ROOT / "src" / "repro_torch"
+    for sub in ("configs", "data", "models", "kernels/rmsnorm",
+                "kernels/flash_attention"):
+        assert any(f.parent == pkg / sub for f in files), sub
     bad = [str(f) for f in files if pat.search(f.read_text())]
     assert not bad, bad

@@ -1,0 +1,263 @@
+"""PyTorch port, the LM's kernels: ``rmsnorm_fwd`` and ``flash_fwd`` (what
+their wrappers run on CPU tensors: the plain versions), the attention
+oracle and the model's attention, against the JAX package on seeded numpy
+inputs.  The JAX kernels run in interpret mode under ``jax.jit``; the CUDA
+kernels run only on the GPU, where ``chip_smoke.py`` holds each against its
+plain version.  Tolerances: float32 2e-5 (out) and 1e-5 (lse, rmsnorm), as
+the JAX kernel tests use; bfloat16 rmsnorm within one bf16 ulp of the JAX
+kernel (both compute in float32 and round once).
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_allclose
+
+from repro.kernels.flash_attention import kernel as jfk
+from repro.kernels.flash_attention import ref as jfref
+from repro.kernels.rmsnorm import kernel as jrk
+from repro.kernels.rmsnorm import ref as jrref
+from repro.models import attention as jattn
+from repro_torch.kernels.flash_attention import kernel as fk
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention import ref as fref
+from repro_torch.kernels.rmsnorm import kernel as rk
+from repro_torch.kernels.rmsnorm import ops as rops
+from repro_torch.kernels.rmsnorm import ref as rref
+from repro_torch.models import attention as tattn
+
+from test_torch_store_index_edges import one_torch_thread  # noqa: F401
+
+J_RMS = jax.jit(functools.partial(jrk.rmsnorm_fwd, interpret=True))
+J_RMS_REF = jax.jit(jrref.rmsnorm)
+J_FLASH = jax.jit(functools.partial(jfk.flash_fwd, block_q=64, block_k=64,
+                                    interpret=True),
+                  static_argnames=("causal", "window", "scale", "q_offset"))
+J_MHA_REF = jax.jit(jfref.mha, static_argnames=("causal", "window",
+                                                "q_offset"))
+J_MHA = jax.jit(jattn.mha, static_argnames=("causal", "window", "q_offset"))
+
+BF16_ULP = 2.0 ** -7       # one bf16 ulp, relative, at worst
+
+
+def _pair(a, dtype):
+    """The same values as a JAX and a torch array of ``dtype``."""
+    a = np.asarray(a, np.float32)
+    if dtype == "bf16":
+        return jnp.asarray(a, jnp.bfloat16), torch.from_numpy(a).bfloat16()
+    return jnp.asarray(a), torch.from_numpy(a.copy())
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) else \
+        np.asarray(t, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(8, 128), (3, 17, 256), (64, 512)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rmsnorm_matches_jax(shape, dtype):
+    rng = np.random.default_rng(sum(shape))
+    jx, tx = _pair(rng.standard_normal(shape), dtype)
+    js, ts = _pair(rng.standard_normal(shape[-1:]), dtype)
+    got = rk.rmsnorm_fwd(tx, ts)
+    assert got.shape == tx.shape and got.dtype == tx.dtype
+    if dtype == "f32":
+        tol = dict(rtol=1e-5, atol=1e-5)
+    else:
+        tol = dict(rtol=BF16_ULP, atol=1e-6)
+    assert_allclose(_np(got), _np(J_RMS(jx, js)), **tol)
+    assert_allclose(_np(got), _np(J_RMS_REF(jx, js)), **tol)
+    assert_allclose(_np(rref.rmsnorm(tx, ts)), _np(J_RMS_REF(jx, js)), **tol)
+
+
+@pytest.mark.parametrize("n,d", [(1, 3840), (7, 120), (5, 1000), (2, 3)])
+def test_rmsnorm_widths_and_one_row(n, d):
+    """Widths that are not a multiple of the kernel's vector (the tests'
+    odd widths), and n = 1 (decode at batch 1)."""
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    s = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    assert_allclose(rk.rmsnorm_fwd(x, s).numpy(),
+                    _np(J_RMS_REF(jnp.asarray(x.numpy()),
+                                  jnp.asarray(s.numpy()))),
+                    rtol=1e-5, atol=1e-5)
+
+
+def test_rmsnorm_wrapper_checks():
+    x = torch.zeros((2, 8))
+    with pytest.raises(ValueError):
+        rk.rmsnorm_fwd(x, torch.zeros(8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        rk.rmsnorm_fwd(x, torch.zeros(7))
+    with pytest.raises(ValueError):
+        rk.rmsnorm_fwd(x.to(torch.int32), torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(ValueError):          # never a fallback off the CPU
+        rk.rmsnorm_fwd(x.to("meta"), torch.zeros(8, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# flash_fwd
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [                              # test_flash_fwd_bwd_sweep's
+    (2, 4, 4, 128, 128, 64, True, 0),
+    (2, 4, 2, 128, 128, 64, True, 0),        # GQA
+    (1, 8, 2, 256, 256, 32, True, 128),      # GQA + SWA
+    (1, 4, 4, 128, 128, 64, False, 0),       # bidirectional
+    (1, 4, 2, 64, 256, 32, True, 0),         # chunked decode (q_offset)
+]
+
+
+def _qkv(B, Hq, Hkv, Sq, Sk, D, seed=0, dtype="f32"):
+    rng = np.random.default_rng(seed)
+    return [_pair(rng.standard_normal(s), dtype)
+            for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", FLASH_CASES)
+def test_flash_fwd_matches_jax(B, Hq, Hkv, Sq, Sk, D, causal, window):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(B, Hq, Hkv, Sq, Sk, D)
+    qo = Sk - Sq
+    flat = lambda t, H, S: t.reshape(B * H, S, D)      # noqa: E731
+    kw = dict(causal=causal, window=window, scale=D ** -0.5, q_offset=qo)
+    want, want_lse = J_FLASH(flat(jq, Hq, Sq), flat(jk, Hkv, Sk),
+                             flat(jv, Hkv, Sk), **kw)
+    got, lse = fk.flash_fwd(flat(tq, Hq, Sq), flat(tk, Hkv, Sk),
+                            flat(tv, Hkv, Sk), **kw)
+    assert got.dtype == torch.float32 and lse.shape == (B * Hq, Sq)
+    assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=1e-5, atol=1e-5)
+    ref = J_MHA_REF(jq, jk, jv, causal=causal, window=window, q_offset=qo)
+    assert_allclose(got.reshape(B, Hq, Sq, D).numpy(), np.asarray(ref),
+                    rtol=2e-5, atol=2e-5)
+    # the port's oracle and mask against the JAX ones
+    assert_allclose(fref.mha(tq, tk, tv, causal=causal, window=window,
+                             q_offset=qo).numpy(), np.asarray(ref),
+                    rtol=2e-5, atol=2e-5)
+    assert np.array_equal(
+        fref.attention_mask(Sq, Sk, causal=causal, window=window,
+                            q_offset=qo).numpy(),
+        np.asarray(jfref.attention_mask(Sq, Sk, causal=causal,
+                                        window=window, q_offset=qo)))
+
+
+def test_flash_fwd_bf16_matches_jax():
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 4, 4, 128, 128, 64, seed=3,
+                                        dtype="bf16")
+    kw = dict(causal=True, window=0, scale=64 ** -0.5)
+    want, want_lse = J_FLASH(jq[0], jk[0], jv[0], **kw)
+    got, lse = fk.flash_fwd(tq[0].contiguous(), tk[0].contiguous(),
+                            tv[0].contiguous(), **kw)
+    assert got.dtype == torch.bfloat16
+    assert_allclose(_np(got), _np(want), rtol=BF16_ULP, atol=1e-4)
+    assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset,causal,window", [
+    (100, 150, 50, True, 0),          # ragged q and k tails
+    (1, 70, 69, True, 33),            # one decode row
+    (37, 37, 0, False, 16),           # window without causality
+    (5, 300, 0, True, 8),             # rows with keys far past them
+])
+def test_flash_fwd_ragged_lengths(Sq, Sk, q_offset, causal, window):
+    """Lengths that are not a multiple of the kernel's 64-row and 64-key
+    tiles: the wrapper takes them (the kernel masks the tails) and the plain
+    version it runs here agrees with the oracle; chip_smoke.py holds the
+    kernel to the plain version at such lengths."""
+    (_, tq), (_, tk), (_, tv) = _qkv(1, 6, 3, Sq, Sk, 24, seed=Sq)
+    got, lse = fk.flash_fwd(tq[0], tk[0], tv[0], causal=causal,
+                            window=window, scale=24 ** -0.5,
+                            q_offset=q_offset)
+    want = fref.mha(tq, tk, tv, causal=causal, window=window,
+                    q_offset=q_offset)[0]
+    assert_allclose(got.numpy(), want.numpy(), rtol=2e-5, atol=2e-5)
+    assert torch.isfinite(lse).all()
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset,causal,window", [
+    (32768, 32768, 0, True, 4096),    # the main path
+    (4096, 4096, 0, True, 128),
+    (64, 4096, 4032, True, 4096),
+    (300, 1000, 700, True, 0),
+    (200, 200, 0, False, 50),
+    (130, 130, 0, False, 0),
+])
+def test_flash_kv_tiles_cover_the_mask(Sq, Sk, q_offset, causal, window):
+    """The kernel's kv loop bounds (mirrored by ``kv_tiles``) visit every
+    tile holding a live key of the q block, and at most
+    ceil((window + BQ - 1) / BK) + 1 tiles under a causal window."""
+    bound = -(-(window + fk.BQ - 1) // fk.BK) + 1
+    for q0 in range(0, Sq, fk.BQ):
+        rows = min(fk.BQ, Sq - q0)
+        tiles = fk.kv_tiles(q0, rows, Sk, causal=causal, window=window,
+                            q_offset=q_offset)
+        m = fref.attention_mask(rows, Sk, causal=causal, window=window,
+                                q_offset=q_offset + q0)
+        live = np.flatnonzero(m.any(0).numpy())
+        if live.size:
+            assert tiles.start <= live[0] // fk.BK
+            assert tiles.stop > live[-1] // fk.BK
+        if causal and window > 0:
+            assert len(tiles) <= bound
+
+
+def test_flash_wrapper_checks():
+    q = torch.zeros((4, 8, 16))
+    k = torch.zeros((2, 8, 16))
+    kw = dict(causal=True, window=0, scale=0.25)
+    with pytest.raises(ValueError):
+        fk.flash_fwd(q, torch.zeros((3, 8, 16)), torch.zeros((3, 8, 16)),
+                     **kw)
+    with pytest.raises(ValueError):
+        fk.flash_fwd(torch.zeros((4, 8, 130)), torch.zeros((2, 8, 130)),
+                     torch.zeros((2, 8, 130)), **kw)
+    with pytest.raises(ValueError):
+        fk.flash_fwd(q, k.bfloat16(), k, **kw)
+    with pytest.raises(ValueError):
+        fk.flash_fwd(q, torch.zeros((2, 0, 16)), torch.zeros((2, 0, 16)),
+                     **kw)
+    with pytest.raises(ValueError):          # never a fallback off the CPU
+        fk.flash_fwd(q.to("meta"), k.to("meta"), k.to("meta"), **kw)
+
+
+def test_ops_are_forward_only():
+    """The ops serve; their backward raises instead of a silent plain
+    PyTorch gradient."""
+    x = torch.ones((2, 8), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="15b"):
+        rops.rmsnorm(x, torch.ones(8)).sum().backward()
+    q = torch.ones((1, 2, 4, 8), requires_grad=True)
+    k = torch.ones((1, 1, 4, 8))
+    with pytest.raises(NotImplementedError, match="15b"):
+        fops.mha(q, k, k).sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# models.attention.mha
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,window,rows", [
+    (2, 4, 2, 128, 16, 0, None),
+    (1, 8, 2, 256, 32, 64, None),
+    (1, 2, 1, 4096, 8, 1000, None),     # two 2048-key chunks
+    (1, 2, 1, 4096, 8, 1000, 1024),     # and four query passes that skip
+])
+def test_model_attention_matches_jax(B, Hq, Hkv, S, D, window, rows,
+                                     monkeypatch):
+    """Both backends against the JAX model's attention (its chunked jnp
+    path on the CPU)."""
+    if rows:
+        monkeypatch.setattr(tattn, "_ROWS", rows)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(B, Hq, Hkv, S, S, D, seed=S + D)
+    want = np.asarray(J_MHA(jq, jk, jv, causal=True, window=window))
+    for be in ("ref", "kernel"):
+        got = tattn.mha(tq, tk, tv, causal=True, window=window, backend=be)
+        assert got.shape == (B, Hq, S, D)
+        assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5, err_msg=be)
