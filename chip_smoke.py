@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's A1 read path and LM serving path on one NVIDIA
-GPU and check them.
+"""Drive the PyTorch port's A1 read path and LM serving and training paths
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # the whole run (one GPU, ~10 minutes)
     python3 chip_smoke.py --quick    # build and check the kernels only
@@ -12,8 +12,9 @@ Phases, each printed on its own line:
      each, in parallel;
   3. kernel checks — every kernel against its plain PyTorch version on the
      card at edge-case shapes (the int kernels and ``knn_topk`` exactly,
-     floats compared as bits; ``rmsnorm_fwd`` and ``flash_fwd`` within the
-     tolerances stated beside their checks);
+     floats compared as bits; ``rmsnorm_fwd``, ``flash_fwd`` and the two
+     ``flash_bwd`` kernels within the tolerances stated beside their
+     checks);
   4. load — one shard of the a1-kg paper-scale config (one A1 machine's
      share of the §6 graph) filled by the port's film-KG loader;
   5. serve — 64-query batches of the a1-kg shape cells (serve_q1 2-hop,
@@ -40,18 +41,27 @@ Phases, each printed on its own line:
      ``lm/decode_consistency`` (decode steps against ``forward``, and a
      ring that wraps), ``lm/prefill_32k`` and ``lm/decode_32k`` in bf16,
      timed, each checked against ``backend="ref"``;
+ 9b. lm_train — after phase 9's weights and cache are freed:
+     ``lm/train_check_f32`` (4 of the 24 layers in float32 over 4,608
+     tokens: ``loss_fn`` and every gradient on the kernel path against
+     ``backend="ref"``, and remat against none) and ``lm/train_4k`` (all 24
+     layers in bf16, AdamW with f32 moments, one 4,096-token sequence a
+     step: the first step's loss, gradient norm and gradients against
+     ``backend="ref"``, then 2 warm-up and 8 timed steps on one batch whose
+     loss must fall);
  10. kernels — each kernel at the inputs the main path gave it: its
-     launches during phases 5-9, its time beside the plain version's, the
+     launches during phases 5-9b, its time beside the plain version's, the
      bound and a library call, as one JSON line;
  11. small reference — small stores against plain set computations and a
      numpy k-NN in the kernels' summation order, on one shard and on a
      4-shard mesh.
 
-Each of phases 5-9 sets the kernels' launch counts to 0 just before its
-timed batches or calls (per budget mode or cell) and reads them just after.
+Each of phases 5-9b sets the kernels' launch counts to 0 just before its
+timed batches, calls or steps (per budget mode or cell) and reads them just
+after.
 Any failed check raises, so the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 before
-printing any result.  ``--rehearse`` runs phases 4-9 and 11 at a tiny size
+printing any result.  ``--rehearse`` runs phases 4-9b and 11 at a tiny size
 on the CPU (plain kernel versions, no build) and then exits 1.
 """
 from __future__ import annotations
@@ -98,9 +108,12 @@ MESH_REDUCED = ("n_shards 256 -> 4", "bucket 256 -> 4096")
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
 # f32_seq runs past the window, so that the f32 check's mask drops keys
 LM_FULL = dict(f32_seq=4096 + 512, consist=(2, 256), ring=(2, 64, 96),
-               prefill_batch=1, decode_steps=16)
+               prefill_batch=1, decode_steps=16, check_layers=4,
+               train_batch=1, warm_steps=2, timed_steps=8)
 LM_REHEARSE = dict(f32_seq=64, consist=(2, 40), ring=(2, 8, 24),
-                   prefill_batch=1, decode_steps=3, seq=96, decode_batch=4)
+                   prefill_batch=1, decode_steps=3, seq=96, decode_batch=4,
+                   check_layers=4, train_batch=1, warm_steps=2,
+                   timed_steps=3, train_seq=64)
 # float32 model outputs, kernel path against backend="ref" or decode
 # against forward: max |a - b| over max |b|.  Each op rounds at ~1e-7
 # relative, sums of up to 10,240 terms reach ~1e-5, 24 layers add up.
@@ -109,6 +122,18 @@ LM_F32_TOL = 1e-3
 # plain ones up to a bf16 rounding (one ulp, 2**-8 relative), and every
 # such difference passes through the later layers' bf16 matmuls.
 LM_BF16_TOL = 3e-2
+# remat against none, float32 gradients on the kernel path: the same
+# forward recomputed gives the same bits; only the order of the float32
+# atomic adds in the embedding gather's backward may differ
+REMAT_TOL = 1e-5
+# lm/train_4k's first step, bf16 kernel path against backend="ref": the
+# loss is a mean over 4,096 positions of errors like prefill's (LM_BF16_TOL
+# at the largest logit, far less on average); the gradient norm and each
+# leaf's direction sum millions of bf16-rounded products whose rounding
+# errors are independent.  Read on the H100: loss 3.5e-7, gnorm 1.97e-4,
+# least cosine 0.99961.  One lost kv-head group of wk's 24 x 8 (of equal
+# norm) would read sqrt(1 - 1/192) = 0.9974, one lost layer 0.979
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_MIN_COSINE = 1e-4, 3e-3, 0.999
 
 KERNELS = {   # wrapper -> (source, the TPU kernel's pallas_call it replaces)
     "searchsorted_left_ranged": (
@@ -130,22 +155,32 @@ KERNELS = {   # wrapper -> (source, the TPU kernel's pallas_call it replaces)
                     "src/repro/kernels/rmsnorm/kernel.py:33"),
     "flash_fwd": ("src/repro_torch/csrc/flash_fwd.cu",
                   "src/repro/kernels/flash_attention/kernel.py:107"),
+    "flash_bwd_dkv": ("src/repro_torch/csrc/flash_bwd.cu",
+                      "src/repro/kernels/flash_attention/kernel.py:212"),
+    "flash_bwd_dq": ("src/repro_torch/csrc/flash_bwd.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:234"),
 }
-LM_KERNELS = ("rmsnorm_fwd", "flash_fwd")
+LM_KERNELS = ("rmsnorm_fwd", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # the main path each kernel belongs to: phase 5's per-query serve, phase
-# 6's shared serve, phase 7's nearest serve, phase 8's mesh serve or phase
-# 9's LM prefill
+# 6's shared serve, phase 7's nearest serve, phase 8's mesh serve, phase
+# 9's LM prefill or phase 9b's LM train step
 PATH_OF = {"searchsorted_left_ranged": "per_query", "expand": "per_query",
            "dedup_compact_rows": "per_query", "sort_rows": "per_query",
            "sort_pairs": "shared", "knn_topk": "nearest",
            "searchsorted_left": "mesh", "rmsnorm_fwd": "lm_prefill",
-           "flash_fwd": "lm_prefill"}
+           "flash_fwd": "lm_prefill", "flash_bwd_dkv": "lm_train",
+           "flash_bwd_dq": "lm_train"}
 # float kernels: (rtol, atol) of the kernel against its plain version, per
-# output and input dtype (see _check_rmsnorm and _check_flash)
+# output and input dtype (see _check_rmsnorm, _check_flash and
+# _check_flash_bwd)
 FLOAT_TOL = {"rmsnorm_fwd": {"float32": [(1e-5, 1e-5)],
                              "bfloat16": ["ulp"]},
              "flash_fwd": {"float32": [(2e-5, 2e-5), (1e-5, 1e-5)],
-                           "bfloat16": [(2 ** -7, 1e-4), (1e-5, 1e-5)]}}
+                           "bfloat16": [(2 ** -7, 1e-4), (1e-5, 1e-5)]},
+             "flash_bwd_dkv": {"float32": [(2e-4, 2e-4)] * 2,
+                               "bfloat16": ["scale_ulp"] * 2},
+             "flash_bwd_dq": {"float32": [(2e-4, 2e-4)],
+                              "bfloat16": ["scale_ulp"]}}
 
 
 def say(tag: str, **kw) -> None:
@@ -314,7 +349,8 @@ def phase_kernel_checks():
     n_cases += _check_knn_topk(rng, t)
     torch.cuda.synchronize()
     say("KERNEL_CHECKS", cases=n_cases, equal=True)
-    errs = {"rmsnorm_fwd": _check_rmsnorm(dev), "flash_fwd": _check_flash(dev)}
+    errs = {"rmsnorm_fwd": _check_rmsnorm(dev), "flash_fwd": _check_flash(dev),
+            "flash_bwd": _check_flash_bwd(dev)}
     torch.cuda.synchronize()
     say("KERNEL_CHECKS_FLOAT", cases={k: len(v) for k, v in errs.items()},
         within_tolerance=True, max_abs_err={
@@ -446,9 +482,11 @@ def _check_knn_topk(rng, t) -> int:
 
 def _close(a, b, what, tol) -> float:
     """``a`` within ``tol`` of ``b`` everywhere (one shape and dtype):
-    ``(rtol, atol)``, or ``"ulp"`` for at most one bf16 ulp apart (the bit
-    patterns of same-signed values differ by at most 1).  NaN never passes.
-    Returns the largest absolute difference."""
+    ``(rtol, atol)``, ``"ulp"`` for at most one bf16 ulp apart (the bit
+    patterns of same-signed values differ by at most 1), or ``"scale_ulp"``
+    for at most one bf16 ulp of ``b``'s largest magnitude apart.  NaN never
+    passes.  Returns the largest absolute difference."""
+    import math
     import torch
     check(a.shape == b.shape and a.dtype == b.dtype,
           f"{what}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
@@ -458,6 +496,9 @@ def _close(a, b, what, tol) -> float:
     if tol == "ulp":
         steps = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
         ok = (steps <= 1) | (err == 0)
+    elif tol == "scale_ulp":
+        top = float(b.double().abs().max())
+        ok = err <= (2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0)
     else:
         rtol, atol = tol
         ok = err <= atol + rtol * b.double().abs()
@@ -544,6 +585,57 @@ def _check_flash(dev):
     return out
 
 
+# (B*Hkv, G, Sq, Sk, D, causal, window, q_offset)
+FLASH_BWD_CASES = (
+    (2, 1, 63, 63, 64, True, 0, 0),               # one tile, G = 1
+    (1, 4, 65, 65, 120, True, 0, 0),              # one row past a tile
+    (2, 4, 300, 300, 17, True, 128, 0),           # odd D, window
+    (1, 4, 4097, 4097, 120, True, 4096, 0),       # the window drops key 0
+    (1, 4, 4097, 4097, 120, True, 128, 0),        # q tiles a k tile skips
+    (1, 1, 1, 1, 120, True, 0, 0),                # one query, one key
+    (1, 4, 1, 4097, 120, True, 4096, 4096),       # one decode row
+    (2, 1, 65, 63, 64, False, 0, 0),              # bidirectional, Sq > Sk
+    (1, 4, 63, 4097, 17, True, 128, 4034),        # q_offset, window
+    (1, 4, 10, 20, 17, False, 8, 20),             # rows 7-9 see no key
+)
+
+
+def _check_flash_bwd(dev):
+    """The two flash_bwd kernels against their plain version, dq, dk and
+    dv, from the plain forward's lse and delta = sum(out * dout): f32
+    within 2e-4 (the JAX kernel tests' tolerance for the gradients); bf16
+    within one bf16 ulp of each output's largest magnitude (both sum the
+    same bf16 inputs in f32 in another order, then round once: two values
+    a few f32 ulps apart round at most one bf16 ulp apart, and no element
+    is larger than the largest).  Returns [(dtype, max abs err)]."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        tol_dq = _float_tol("flash_bwd_dq", dt)[0]
+        tol_dkv = _float_tol("flash_bwd_dkv", dt)[0]
+        for BHkv, G, Sq, Sk, D, causal, window, qo in FLASH_BWD_CASES:
+            q, do = (torch.randn((BHkv * G, Sq, D), generator=gen,
+                                 device=dev).to(dt) for _ in range(2))
+            k, v = (torch.randn((BHkv, Sk, D), generator=gen,
+                                device=dev).to(dt) for _ in range(2))
+            kw = dict(causal=causal, window=window, scale=D ** -0.5,
+                      q_offset=qo)
+            o, lse = fk.flash_fwd_plain(q, k, v, **kw)
+            delta = torch.sum(o.float() * do.float(), dim=-1)
+            got = fk.flash_bwd(q, k, v, do, lse, delta, **kw)
+            want = fk.flash_bwd_plain(q, k, v, do, lse, delta, **kw)
+            what = (f"flash_bwd {dt} "
+                    f"{(BHkv, G, Sq, Sk, D, causal, window, qo)}")
+            err = max(_close(g, w, f"{what} {name}", tol)
+                      for g, w, name, tol in zip(
+                          got, want, ("dq", "dk", "dv"),
+                          (tol_dq, tol_dkv, tol_dkv)))
+            out.append((str(dt).replace("torch.", ""), err))
+    return out
+
+
 class Recorder:
     """Wraps the kernel wrappers the backend calls, keeping the inputs of
     the largest call of each (by the work it asks for)."""
@@ -560,7 +652,8 @@ class Recorder:
                      "dedup_compact_rows": dk, "sort_rows": dk,
                      "sort_pairs": dk, "knn_topk": kk,
                      "searchsorted_left": sk, "rmsnorm_fwd": rk,
-                     "flash_fwd": fk}
+                     "flash_fwd": fk, "flash_bwd_dkv": fk,
+                     "flash_bwd_dq": fk}
         self.only = None          # record just these wrappers (None: all)
         self.orig = {n: getattr(m, n) for n, m in self.mods.items()}
         for name, mod in self.mods.items():
@@ -575,7 +668,9 @@ class Recorder:
             "sort_pairs": lambda a, kw: a[0].numel(),
             "knn_topk": lambda a, kw: a[0].shape[0] * a[1].shape[0],
             "rmsnorm_fwd": lambda a, kw: a[0].numel(),
-            "flash_fwd": lambda a, kw: a[0].numel() * a[1].shape[1]}
+            "flash_fwd": lambda a, kw: a[0].numel() * a[1].shape[1],
+            "flash_bwd_dkv": lambda a, kw: a[0].numel() * a[1].shape[1],
+            "flash_bwd_dq": lambda a, kw: a[0].numel() * a[1].shape[1]}
 
     def _wrap(self, name, fn):
         def rec(*args, **kw):
@@ -1099,7 +1194,8 @@ OWN_KERNELS = ("searchsorted_left_ranged_kernel", "searchsorted_left_kernel",
                "dedup_compact_rows_kernel", "sort_rows_kernel",
                "chunk_sort_kernel", "global_step_kernel",
                "chunk_merge_kernel", "knn_chunk_kernel", "knn_merge_kernel",
-               "rmsnorm_fwd_kernel", "flash_fwd_kernel")
+               "rmsnorm_fwd_kernel", "flash_fwd_kernel",
+               "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 
 
 def phase_profile(db, cell, qs, p50_s, **kw):
@@ -1416,6 +1512,204 @@ def phase_lm(dev, cfg, sizes, launches, rec):
         source="src/repro/configs/h2o_danube_3_4b.py")
 
 
+# ---------------------------------------------------------------------------
+# the LM training path: h2o-danube-3-4b's train_4k
+# ---------------------------------------------------------------------------
+
+def _slices(t):
+    return t.unbind(0) if t.dim() >= 3 else (t,)
+
+
+def _cosine(a, b) -> float:
+    """Cosine similarity of two gradient leaves, in float32 a layer at a
+    time (no whole-leaf float32 copy)."""
+    import torch
+    dot = na = nb = torch.zeros((), device=a.device)
+    for x, y in zip(_slices(a), _slices(b)):
+        x, y = x.float(), y.float()
+        dot, na, nb = dot + (x * y).sum(), na + (x * x).sum(), \
+            nb + (y * y).sum()
+    return float(dot / torch.sqrt(na * nb).clamp(min=1e-30))
+
+
+def _grad_leaves(grads):
+    from repro_torch.models import transformer as T
+    return [(".".join(map(str, path)), g) for path, g in T.leaves(grads)]
+
+
+def phase_lm_train_check(dev, cfg, sizes):
+    """``lm/train_check_f32``: FULL's widths cut to ``check_layers`` layers
+    in float32, one sequence past the window: ``loss_fn``'s loss and every
+    gradient leaf on the kernel path against ``backend="ref"`` (with remat,
+    which bounds the reference attention's saved scores to one layer), and
+    the kernel path with remat against without."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as T
+    cfg32 = dataclasses.replace(
+        cfg, dtype=torch.float32,
+        n_layers=min(sizes["check_layers"], cfg.n_layers))
+    p = _lm_weights(cfg32, dev, 5)
+    toks = _lm_tokens(cfg, dev, 1, sizes["f32_seq"] + 1, 16)
+    tokens, targets = toks[:, :-1], toks[:, 1:]
+    runs, secs = {}, {}
+    for name, remat, be in (("kernel", False, "kernel"),
+                            ("kernel_remat", True, "kernel"),
+                            ("ref", True, "ref")):
+        t0 = time.perf_counter()
+        (loss, _), g = T.value_and_grad(
+            p, dataclasses.replace(cfg32, remat=remat), tokens, targets,
+            backend=be)
+        _sync(dev)
+        secs[name] = time.perf_counter() - t0
+        runs[name] = (loss, _grad_leaves(g))
+        del g
+    (lk, gk), (lr, gr) = runs["kernel_remat"], runs["ref"]
+    loss_err = abs(float(lk) - float(lr)) / abs(float(lr))
+    errs = {n: _rel_err(a, b) for (n, a), (_, b) in zip(gk, gr)}
+    remat = max(_rel_err(a, b) for (_, a), (_, b) in
+                zip(gk, runs["kernel"][1]))
+    worst = max(errs.values())
+    check(loss_err <= LM_F32_TOL and worst <= LM_F32_TOL,
+          f"lm/train_check_f32: kernel vs ref loss {loss_err}, "
+          f"gradients {errs}")
+    check(remat <= REMAT_TOL, f"lm/train_check_f32: remat vs none {remat}")
+    check(all(bool(torch.isfinite(g).all()) for _, g in gk),
+          "lm/train_check_f32: non-finite gradient")
+    say("LM_CHECK", cell="lm/train_check_f32", dtype="float32", batch=1,
+        seq=sizes["f32_seq"], layers=cfg32.n_layers, loss=float(lk),
+        loss_rel_err=loss_err, grad_rel_err_max=worst,
+        grad_rel_err=errs, remat_vs_none_rel_err=remat,
+        tolerance=LM_F32_TOL, remat_tolerance=REMAT_TOL, seconds=secs)
+    del p, runs, gk, gr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_lm_train(dev, cfg, sizes, launches, rec):
+    """Phase 9b.  ``lm/train_4k``: the cell's 4,096-token sequences at full
+    width and depth in bf16 with the optimizer ``pick_opt`` gives (AdamW,
+    float32 moments), ``train_batch`` sequences a step from
+    ``token_pipeline``.  Check 1: the first step's loss, gradient norm and
+    gradients on the kernel path against ``backend="ref"``.  Check 2: 2
+    warm-up steps, then timed steps on the same batch (launches counted),
+    the loss falling from the first step to the last."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.h2o_danube_3_4b import SHAPES
+    from repro_torch.configs.registry import cell
+    from repro_torch.data.tokens import token_pipeline
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.steps import (lm_train_step, pick_opt,
+                                          train_geometry)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import (AdamWConfig, global_norm,
+                                              init_opt_state)
+    t_phase = time.perf_counter()
+    held = None
+    if dev.type == "cuda":
+        # phase 9's weights and 48 GB cache are gone; what stays is the
+        # recorder's main-path kernel inputs (~2 GB)
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        check(held < 8 << 30, f"lm_train: {held} bytes still held")
+    phase_lm_train_check(dev, cfg, sizes)
+
+    c = cell(SHAPES, "train_4k")
+    accum, mb, S = train_geometry(c)
+    B, S = sizes["train_batch"], sizes.get("train_seq", S)
+    check(accum == 1, f"train_4k: accum {accum}")
+    p = _lm_weights(cfg, dev, 6)
+    pipe = token_pipeline(batch=B, seq=S, vocab=cfg.vocab, seed=17,
+                          device=dev)
+    tokens, targets = (t[None] for t in next(pipe))   # (accum, B, S)
+    pipe.close()
+
+    # check 1: the first step's gradients, kernel path against ref
+    first = {}
+    for be in ("kernel", "ref"):
+        t0 = time.perf_counter()
+        (loss, _), g = T.value_and_grad(p, cfg, tokens[0], targets[0],
+                                        backend=be)
+        first[be] = (float(loss), float(global_norm(g)), _grad_leaves(g),
+                     time.perf_counter() - t0)
+        del g
+    (lk, nk, gk, _), (lr, nr, gr, _) = first["kernel"], first["ref"]
+    cos = {n: _cosine(a, b) for (n, a), (_, b) in zip(gk, gr)}
+    loss_err, gnorm_err = abs(lk - lr) / abs(lr), abs(nk - nr) / nr
+    check(loss_err <= TRAIN_LOSS_TOL and gnorm_err <= TRAIN_GNORM_TOL
+          and min(cos.values()) >= TRAIN_MIN_COSINE,
+          f"lm/train_4k first step: loss {lk} vs {lr}, gnorm {nk} vs {nr}, "
+          f"cosines {cos}")
+    check(all(np.isfinite([lk, nk])), "lm/train_4k: non-finite first step")
+    del gk, gr
+    for be in first:
+        first[be] = first[be][:2] + first[be][3:]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    ocfg = pick_opt(cfg.n_params())
+    check(dev.type != "cuda" or ocfg == AdamWConfig(),
+          f"train_4k: optimizer {ocfg}")
+    state = init_opt_state(p, ocfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, secs = [], [], []
+
+    def step():
+        nonlocal p, state
+        p, state, m = lm_train_step(p, state, tokens, targets, cfg, ocfg)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    for _ in range(sizes["warm_steps"]):
+        step()
+    _sync(dev)
+    _cuda.reset_launches()
+    rec.only = {"flash_bwd_dkv", "flash_bwd_dq"}
+    for _ in range(sizes["timed_steps"]):
+        t0 = time.perf_counter()
+        step()
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+    rec.only = set()
+    launches["lm_train"] = dict(_cuda.LAUNCHES)
+    L = cfg.n_layers
+    _lm_launch_check(launches, "lm_train", {
+        "rmsnorm_fwd": 4 * L + 1, "flash_fwd": 2 * L, "flash_bwd_dkv": L,
+        "flash_bwd_dq": L}, sizes["timed_steps"], dev)
+    check(all(np.isfinite(losses + gnorms)), f"lm/train_4k: {losses}")
+    check(losses[-1] < losses[0],
+          f"lm/train_4k: the loss did not fall: {losses}")
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    p50 = float(np.median(secs))
+    live = _live_pairs(S, S, True, cfg.window, 0)
+    flops = 6.0 * cfg.n_active_params() * B * S \
+        + 18.0 * cfg.d_head * live * cfg.n_heads * L * B
+    say("LM_TRAIN", cell="lm/train_4k", dtype=str(cfg.dtype), batch=B,
+        seq=S, layers=L, reduced=[f"global_batch "
+                                  f"{c.geometry['global_batch']} -> {B}"],
+        optimizer=str(ocfg), p50_ms=p50 * 1e3, ms=[x * 1e3 for x in secs],
+        tokens_per_s=B * S / p50, flops=flops,
+        bf16_peak_share=flops / p50 / BF16_OPS_PER_S,
+        peak_memory_allocated=peak, held_before=held, losses=losses,
+        gnorms=gnorms,
+        launches_per_step={k: launches["lm_train"][k] / len(secs)
+                           for k in LM_KERNELS},
+        first_step=dict(kernel=first["kernel"], ref=first["ref"],
+                        loss_rel_err=loss_err, gnorm_rel_err=gnorm_err,
+                        min_cosine=min(cos.values()), cosine=cos,
+                        tolerance=dict(loss=TRAIN_LOSS_TOL,
+                                       gnorm=TRAIN_GNORM_TOL,
+                                       min_cosine=TRAIN_MIN_COSINE)))
+    if dev.type == "cuda":
+        _profile("lm_train_4k", step, p50)
+    del p, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    say("LM_TRAIN_PHASE", seconds=time.perf_counter() - t_phase,
+        config=cfg.name, source="src/repro/configs/h2o_danube_3_4b.py")
+
+
 def phase_small_reference(dev):
     """A small store: the port's counts against plain set computations."""
     import numpy as np
@@ -1608,6 +1902,23 @@ def _bound(name, args, kw):
         t_bytes = nbytes / HBM_BYTES_PER_S
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes >= t_ops else "operations")
+    elif name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        # q, k, v, dout, lse and delta read once, dk and dv (or dq)
+        # written once; a live pair costs 8*D flops for dk and dv (s, dp,
+        # p^T dout, ds^T q) and 6*D for dq (s, dp, ds k) at the bf16
+        # tensor-core rate
+        q, k = args[0], args[1]
+        BHq, Sq, D = q.shape
+        live = _live_pairs(Sq, k.shape[1], kw["causal"], kw["window"],
+                           kw["q_offset"])
+        out = 2 * k.numel() if name == "flash_bwd_dkv" else q.numel()
+        nbytes = (2 * q.numel() + 2 * k.numel() + out) * q.element_size() \
+            + 8 * BHq * Sq
+        per_pair = 8.0 if name == "flash_bwd_dkv" else 6.0
+        t_ops = per_pair * D * BHq * live / BF16_OPS_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
     else:
         x = args[0]
         R, W = x.shape
@@ -1636,31 +1947,34 @@ def _bits(ts):
 
 
 def _library_call(name, args, kw):
-    """(label, callable) of one PyTorch call computing the same function
-    on the same inputs, or None."""
+    """(label, ms) of one PyTorch call computing the same function on the
+    same inputs, or None.  The flash_bwd kernels' is SDPA's backward."""
     import torch
     from repro_torch.kernels.dedup_compact import ref as dref
+    if name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        return _sdpa_bwd(args, kw)
+    lib = None
     if name == "sort_rows":
-        return "torch.sort", lambda: torch.sort(args[0], dim=1)
+        lib = "torch.sort", lambda: torch.sort(args[0], dim=1)
     if name == "sort_pairs":
         packed = dref.pack_pairs(*args)
-        return "torch.sort of the packed int64", lambda: torch.sort(packed)
+        lib = "torch.sort of the packed int64", lambda: torch.sort(packed)
     if name == "searchsorted_left":
-        return "torch.searchsorted", lambda: torch.searchsorted(
+        lib = "torch.searchsorted", lambda: torch.searchsorted(
             args[0], args[1], out_int32=True)
     if name == "searchsorted_left_ranged":
         keys, q, lo, hi = args
         if bool((lo == lo[0]).all()) and bool((hi == hi[0]).all()):
             blk = keys[int(lo[0]):int(hi[0])]
-            return "torch.searchsorted, one block", lambda: \
+            lib = "torch.searchsorted, one block", lambda: \
                 torch.searchsorted(blk, q, out_int32=True)
     if name == "rmsnorm_fwd" and hasattr(torch.nn.functional, "rms_norm"):
         x, scale = args
-        return "F.rms_norm", lambda: torch.nn.functional.rms_norm(
+        lib = "F.rms_norm", lambda: torch.nn.functional.rms_norm(
             x, (x.shape[-1],), scale, kw.get("eps", 1e-6))
     if name == "flash_fwd":
-        return _sdpa_call(args, kw)
-    return None
+        lib = _sdpa_call(args, kw)
+    return (lib[0], _events_ms(lib[1])) if lib else None
 
 
 def _sdpa_call(args, kw, rows=None):
@@ -1705,6 +2019,48 @@ def _sdpa_call(args, kw, rows=None):
             f"{q.shape[1]} rows"), fn
 
 
+def _sdpa_bwd(args, kw):
+    """(label, ms) of the backward of F.scaled_dot_product_attention on
+    flash_bwd's inputs (fused backends, ``is_causal``, ``enable_gqa`` or k
+    and v repeated over the group), timed as forward plus backward minus
+    forward; None unless the mask is the plain causal one (the window
+    covers every position and no offset), where SDPA computes the same
+    function."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q, k, v, do = args[:4]
+    BHq, Sq, D = q.shape
+    BHkv, Sk, _ = k.shape
+    if not (kw["causal"] and kw["q_offset"] == 0 and Sq == Sk
+            and (kw["window"] <= 0 or kw["window"] >= Sk)):
+        return None
+    q4, k4, v4 = (t.detach().reshape(1, -1, t.shape[1], D).requires_grad_()
+                  for t in (q, k, v))
+    do4 = do.reshape(1, BHq, Sq, D)
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+
+    def fwd(kk, vv, **gqa):
+        with sdpa_kernel(backends):
+            return F.scaled_dot_product_attention(
+                q4, kk, vv, is_causal=True, scale=kw["scale"], **gqa)
+    try:
+        fwd(k4, v4, enable_gqa=True)
+        label, f = "sdpa enable_gqa", lambda: fwd(k4, v4, enable_gqa=True)
+    except RuntimeError:
+        G = BHq // BHkv
+        label = "sdpa, k and v repeated"
+        f = lambda: fwd(*(t.repeat_interleave(G, dim=1)   # noqa: E731
+                          for t in (k4, v4)))
+    with torch.enable_grad():
+        f_ms = _events_ms(f)
+        fb_ms = _events_ms(lambda: torch.autograd.grad(f(), (q4, k4, v4),
+                                                       do4))
+    return (f"{label}, is_causal, {Sq} rows: backward (forward + backward "
+            f"{fb_ms} ms minus forward {f_ms} ms), dq, dk and dv together"), \
+        fb_ms - f_ms
+
+
 def phase_kernel_report(launches, best):
     import torch
     from repro_torch.kernels.dedup_compact import kernel as dk
@@ -1724,7 +2080,9 @@ def phase_kernel_report(launches, best):
            "sort_pairs": (dk.sort_pairs, dk.sort_pairs_plain),
            "knn_topk": (kk.knn_topk, kk.knn_topk_plain),
            "rmsnorm_fwd": (rk.rmsnorm_fwd, rk.rmsnorm_fwd_plain),
-           "flash_fwd": (fk.flash_fwd, fk.flash_fwd_plain)}
+           "flash_fwd": (fk.flash_fwd, fk.flash_fwd_plain),
+           "flash_bwd_dkv": (fk.flash_bwd_dkv, fk.flash_bwd_dkv_plain),
+           "flash_bwd_dq": (fk.flash_bwd_dq, fk.flash_bwd_dq_plain)}
     # the kernels each path must have launched: its own, and the earlier
     # slices' kernels that serve it too
     for path, need in (("shared", ("sort_pairs", "expand",
@@ -1736,11 +2094,13 @@ def phase_kernel_report(launches, best):
                        ("mesh_shared", ("searchsorted_left", "sort_pairs",
                                         "expand",
                                         "searchsorted_left_ranged")),
-                       ("lm_decode", ("rmsnorm_fwd",))):
+                       ("lm_decode", ("rmsnorm_fwd",)),
+                       ("lm_train", LM_KERNELS)):
         for name in need:
             check(launches[path][name] > 0,
                   f"{name} was not launched on the {path} path")
     rows = []
+    torch.set_grad_enabled(False)     # the recorded inputs may need grad
     for name in KERNELS:
         src, replaces = KERNELS[name]
         n_path = launches[PATH_OF[name]][name]
@@ -1773,7 +2133,7 @@ def phase_kernel_report(launches, best):
             ms=_events_ms(lambda: kern(*args, **kw)),
             plain_ms=_events_ms(lambda: plain(*args, **kw), n=5),
             bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=_events_ms(lib[1]) if lib else None,
+            library_ms=lib[1] if lib else None,
             library=lib[0] if lib else None,
             device_ms=_device_ms(lambda: kern(*args, **kw)),
             shapes=shapes, dtype=str(args[0].dtype))
@@ -1788,6 +2148,7 @@ def phase_kernel_report(launches, best):
                        library_causal_4096=label)
         rows.append(row)
         torch.cuda.empty_cache()
+    torch.set_grad_enabled(True)
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -1796,7 +2157,7 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
     ap.add_argument("--rehearse", action="store_true",
-                    help="without a GPU: phases 4-9 and 11 at a tiny size "
+                    help="without a GPU: phases 4-9b and 11 at a tiny size "
                          "on the CPU, then exit 1")
     args = ap.parse_args(argv)
     import torch
@@ -1823,6 +2184,7 @@ def main(argv=None) -> int:
         rec = Recorder()
         rec.only = set()
         phase_lm(dev, danube.REDUCED, LM_REHEARSE, launches, rec)
+        phase_lm_train(dev, danube.REDUCED, LM_REHEARSE, launches, rec)
         rec.restore()
         phase_small_reference(dev)
         print("chip_smoke: CPU rehearsal finished; no GPU result",
@@ -1850,6 +2212,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         rec.only = set()                      # phase_lm records its own
         phase_lm(dev, danube.FULL, LM_FULL, launches, rec)
+        phase_lm_train(dev, danube.FULL, LM_FULL, launches, rec)
         rec.restore()
         phase_kernel_report(launches, rec.best)
         phase_small_reference(dev)

@@ -27,14 +27,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("sorted_lookup", "edge_expand", "dedup_compact", "sort_pairs",
-           "knn_topk", "rmsnorm", "flash_fwd")
+           "knn_topk", "rmsnorm", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"searchsorted_left_ranged": 0, "searchsorted_left": 0,
             "expand": 0,
             "dedup_compact_rows": 0, "sort_rows": 0, "sort_pairs": 0,
-            "knn_topk": 0, "rmsnorm_fwd": 0, "flash_fwd": 0}
+            "knn_topk": 0, "rmsnorm_fwd": 0, "flash_fwd": 0,
+            "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
 _LIBS: dict = {}
 _FUNCS: dict = {}

@@ -1,16 +1,22 @@
-"""FlashAttention-2 forward: the CUDA kernel ``csrc/flash_fwd.cu`` and its
-plain PyTorch version.
+"""FlashAttention-2, forward and backward: the CUDA kernels
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` and their plain PyTorch
+versions.
 
-Port of ``repro/kernels/flash_attention/kernel.py::flash_fwd``.  q is
-(B*Hq, Sq, D), k and v are (B*Hkv, Sk, D) with q head h reading kv head
-``h // G``; a key at position kp is live for the query at position
-``qp = row + q_offset`` when ``kp <= qp`` (causal) and ``kp > qp - window``
-(window > 0).  Returns ``(out, lse)``: out in q's dtype, lse (B*Hq, Sq) f32,
-``out = acc / max(l, 1e-30)`` and ``lse = m + log(max(l, 1e-30))`` as the
-TPU kernel writes them.  Any Sq and Sk >= 1 work (the kernel masks the
-ragged tails; Pallas needs multiples of its blocks), and D <= 128.
-:func:`flash_fwd` runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors.
+Port of ``repro/kernels/flash_attention/kernel.py`` (``flash_fwd`` and the
+two kernels of ``flash_bwd``).  q is (B*Hq, Sq, D), k and v are (B*Hkv, Sk,
+D) with q head h reading kv head ``h // G``; a key at position kp is live
+for the query at position ``qp = row + q_offset`` when ``kp <= qp``
+(causal) and ``kp > qp - window`` (window > 0).  The forward returns
+``(out, lse)``: out in q's dtype, lse (B*Hq, Sq) f32, ``out = acc /
+max(l, 1e-30)`` and ``lse = m + log(max(l, 1e-30))`` as the TPU kernel
+writes them.  The backward takes the forward's lse and ``delta = sum(out *
+dout, -1)`` (f32, computed by the caller as the JAX package computes it
+outside its kernels) and returns dq (``flash_bwd_dq``) and dk, dv
+(``flash_bwd_dkv``) in the inputs' dtype, with ``p = exp(s - lse)`` on live
+pairs and ``ds = p * (dp - delta) * scale``.  Any Sq and Sk >= 1 work (the
+kernels mask the ragged tails; Pallas needs multiples of its blocks), and
+D <= 128.  Each wrapper runs its plain version for CPU tensors and launches
+its kernel for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -36,6 +42,18 @@ def kv_tiles(q0: int, rows: int, Sk: int, *, causal: bool, window: int,
     kend = min(Sk, qhi + 1) if causal else Sk
     t0 = kbeg // BK
     return range(t0, -(-kend // BK) if kend > kbeg else t0)
+
+
+def q_tiles(k0: int, cols: int, Sq: int, *, causal: bool, window: int,
+            q_offset: int = 0) -> range:
+    """The q tiles (of BQ rows) the dK/dV kernel visits for the k tile of
+    keys [k0, k0 + cols): those holding a row that the mask lets see one of
+    its keys (``qp >= k0`` causal, ``qp < k0 + cols - 1 + window`` under a
+    window).  Mirrors the loop bounds in the source."""
+    rbeg = max(0, k0 - q_offset) if causal else 0
+    rend = min(Sq, k0 + cols - 1 + window - q_offset) if window > 0 else Sq
+    t0 = rbeg // BQ
+    return range(t0, -(-rend // BQ) if rend > rbeg else t0)
 
 
 def flash_fwd_plain(q, k, v, *, causal: bool, window: int, scale: float,
@@ -66,26 +84,31 @@ def flash_fwd_plain(q, k, v, *, causal: bool, window: int, scale: float,
     return out, lse
 
 
-def _check(q, k, v):
+def _check(q, k, v, what="flash_fwd"):
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape or \
             q.shape[2] != k.shape[2]:
-        raise ValueError(f"flash_fwd: q {tuple(q.shape)} must be (BHq, Sq, "
+        raise ValueError(f"{what}: q {tuple(q.shape)} must be (BHq, Sq, "
                          f"D) and k, v {tuple(k.shape)}, {tuple(v.shape)} "
                          f"(BHkv, Sk, D)")
     BHq, Sq, D = q.shape
     BHkv, Sk, _ = k.shape
     if BHkv < 1 or BHq % BHkv:
-        raise ValueError(f"flash_fwd: BHq={BHq} is not a multiple of "
+        raise ValueError(f"{what}: BHq={BHq} is not a multiple of "
                          f"BHkv={BHkv}")
     if not 1 <= D <= MAX_D or Sk < 1:
-        raise ValueError(f"flash_fwd: D={D} outside [1, {MAX_D}] or no keys "
+        raise ValueError(f"{what}: D={D} outside [1, {MAX_D}] or no keys "
                          f"(Sk={Sk})")
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_fwd: q, k, v must share one dtype, float32 "
+        raise ValueError(f"{what}: q, k, v must share one dtype, float32 "
                          f"or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_fwd: inputs must be contiguous")
+        raise ValueError(f"{what}: inputs must be contiguous")
+
+
+def _check_positions(q, k, window, q_offset, what):
+    if q.shape[1] + k.shape[1] + abs(q_offset) + max(window, 0) >= 2**31:
+        raise ValueError(f"{what}: positions must fit in int32")
 
 
 def flash_fwd(q, k, v, *, causal: bool, window: int, scale: float,
@@ -96,10 +119,9 @@ def flash_fwd(q, k, v, *, causal: bool, window: int, scale: float,
         return flash_fwd_plain(q, k, v, causal=causal, window=window,
                                scale=scale, q_offset=q_offset)
     _cuda.require_cuda(q, k, v)
+    _check_positions(q, k, window, q_offset, "flash_fwd")
     BHq, Sq, D = q.shape
     BHkv, Sk, _ = k.shape
-    if Sq + abs(q_offset) + Sk >= 2**31:
-        raise ValueError("flash_fwd: positions must fit in int32")
     out = torch.empty_like(q)
     lse = torch.empty((BHq, Sq), dtype=torch.float32, device=q.device)
     if BHq == 0 or Sq == 0:
@@ -115,3 +137,137 @@ def flash_fwd(q, k, v, *, causal: bool, window: int, scale: float,
     _cuda.check(rc, "flash_fwd")
     _cuda.LAUNCHES["flash_fwd"] += 1
     return out, lse
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def _bwd_plain(q, k, v, do, lse, delta, *, causal, window, scale, q_offset,
+               want_dq, want_dkv):
+    """The backward's arithmetic in plain PyTorch, PLAIN_ROWS query rows at
+    a time against every key with the G q heads of a kv head stacked, in
+    float32: dq for the rows of each pass, dk and dv summed over passes and
+    heads."""
+    BHq, Sq, D = q.shape
+    BHkv, Sk, _ = k.shape
+    G = BHq // BHkv
+    kf = k.float()[:, None]                             # (BHkv, 1, Sk, D)
+    vf = v.float()[:, None]
+    qg, og = q.view(BHkv, G, Sq, D), do.view(BHkv, G, Sq, D)
+    lg, dg = lse.view(BHkv, G, Sq, 1), delta.view(BHkv, G, Sq, 1)
+    dq = torch.empty_like(q) if want_dq else None
+    dk = torch.zeros((BHkv, Sk, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for a in range(0, Sq, PLAIN_ROWS):
+        b = min(Sq, a + PLAIN_ROWS)
+        qa, oa = qg[:, :, a:b].float(), og[:, :, a:b].float()
+        s = torch.matmul(qa, kf.transpose(-1, -2)) * scale
+        msk = attention_mask(b - a, Sk, causal=causal, window=window,
+                             q_offset=q_offset + a, device=q.device)
+        p = torch.where(msk, torch.exp(s - lg[:, :, a:b]), 0.0)
+        ds = p * (torch.matmul(oa, vf.transpose(-1, -2)) - dg[:, :, a:b]) \
+            * scale
+        if want_dkv:
+            dv += torch.matmul(p.transpose(-1, -2), oa).sum(1)
+            dk += torch.matmul(ds.transpose(-1, -2), qa).sum(1)
+        if want_dq:
+            dq.view(BHkv, G, Sq, D)[:, :, a:b] = \
+                torch.matmul(ds, kf).to(q.dtype)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_plain(q, k, v, do, lse, delta, *, causal: bool, window: int,
+                    scale: float, q_offset: int = 0):
+    """Plain PyTorch version of both kernels: (dq, dk, dv)."""
+    return _bwd_plain(q, k, v, do, lse, delta, causal=causal, window=window,
+                      scale=scale, q_offset=q_offset, want_dq=True,
+                      want_dkv=True)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal: bool,
+                        window: int, scale: float, q_offset: int = 0):
+    """Plain PyTorch version of the dK/dV kernel: (dk, dv)."""
+    return _bwd_plain(q, k, v, do, lse, delta, causal=causal, window=window,
+                      scale=scale, q_offset=q_offset, want_dq=False,
+                      want_dkv=True)[1:]
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal: bool,
+                       window: int, scale: float, q_offset: int = 0):
+    """Plain PyTorch version of the dQ kernel: dq."""
+    return _bwd_plain(q, k, v, do, lse, delta, causal=causal, window=window,
+                      scale=scale, q_offset=q_offset, want_dq=True,
+                      want_dkv=False)[0]
+
+
+def _check_bwd(q, k, v, do, lse, delta, what):
+    _check(q, k, v, what)
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
+        raise ValueError(f"{what}: dout {tuple(do.shape)} {do.dtype} must "
+                         f"be contiguous and like q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:2] or t.dtype != torch.float32 or \
+                not t.is_contiguous():
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} {t.dtype} "
+                             f"must be contiguous float32 "
+                             f"{tuple(q.shape[:2])}")
+
+
+def _launch_bwd(symbol, q, k, v, do, lse, delta, outs, rows, *, causal,
+                window, scale, q_offset):
+    _cuda.require_cuda(q, k, v, do, lse, delta)
+    _check_positions(q, k, window, q_offset, symbol)
+    BHq, Sq, D = q.shape
+    BHkv, Sk, _ = k.shape
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = _cuda.function("flash_bwd", symbol,
+                        [p] * (6 + len(outs)) + [i32] * 5 + [ctypes.c_float]
+                        + [i32] * 4 + [p])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            rows, BHq // BHkv, Sq, Sk, D, scale, int(causal), int(window),
+            int(q_offset), _cuda.dtype_code(q), _cuda.stream_of(q))
+    _cuda.check(rc, symbol)
+    _cuda.LAUNCHES[symbol] += 1
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, window: int,
+                  scale: float, q_offset: int = 0):
+    """dk, dv (like k and v) from q, k, v, dout (like q), the forward's lse
+    and delta (B*Hq, Sq) float32."""
+    _check_bwd(q, k, v, do, lse, delta, "flash_bwd_dkv")
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv),
+                k.shape[0], **kw)
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, window: int,
+                 scale: float, q_offset: int = 0):
+    """dq (like q) from the same inputs as :func:`flash_bwd_dkv`."""
+    _check_bwd(q, k, v, do, lse, delta, "flash_bwd_dq")
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    dq = torch.empty_like(q)
+    if q.shape[0] and q.shape[1]:
+        _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,),
+                    q.shape[0], **kw)
+    return dq
+
+
+def flash_bwd(q, k, v, do, lse, delta, *, causal: bool, window: int,
+              scale: float, q_offset: int = 0):
+    """The backward: (dq, dk, dv), one launch of each kernel; on CPU
+    tensors one pass of the plain version."""
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+    if q.device.type == "cpu":
+        _check_bwd(q, k, v, do, lse, delta, "flash_bwd")
+        return flash_bwd_plain(q, k, v, do, lse, delta, **kw)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))

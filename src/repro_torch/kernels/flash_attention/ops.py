@@ -1,18 +1,19 @@
-"""The attention op of the model: the flash kernel, forward only.
+"""The attention op of the model: the flash kernels, forward and backward.
 
 Port of ``repro/kernels/flash_attention/ops.py`` (``mha``, ``_flatten``,
-``_fwd_flat``) for serving: (B, H, S, D) is flattened to (B*H, S, D) and
-the scale is ``D ** -0.5``.  The JAX op has a custom VJP (the ``flash_bwd``
-kernels); this slice serves, so the op is a ``torch.autograd.Function``
-whose backward raises until the training slice ports ``flash_bwd``
-(ROADMAP queue 1 item 15b): no gradient comes silently from plain PyTorch.
+``_fwd_flat`` and the custom VJP ``_vjp_fwd`` / ``_vjp_bwd``): (B, H, S, D)
+is flattened to (B*H, S, D) and the scale is ``D ** -0.5``.  The op is a
+``torch.autograd.Function``: its forward runs ``flash_fwd`` and keeps q, k,
+v, out and lse; its backward computes ``delta = sum(out * dout, -1)`` in
+float32 (outside the kernels, as the JAX package does) and runs
+``flash_bwd`` (the dQ and dK/dV kernels).  No gradient comes from plain
+PyTorch autograd through the attention.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as _kernel
-from repro_torch.kernels.rmsnorm.ops import TRAINING_ITEM
 
 
 def _flatten(q, k, v):
@@ -22,23 +23,30 @@ def _flatten(q, k, v):
             v.reshape(B * Hkv, Sk, D))
 
 
-def _fwd_flat(q, k, v, causal, window, q_offset):
-    B, Hq, Sq, D = q.shape
-    qf, kf, vf = (t.contiguous() for t in _flatten(q, k, v))
-    out, lse = _kernel.flash_fwd(qf, kf, vf, causal=causal, window=window,
-                         scale=D ** -0.5, q_offset=q_offset)
-    return out.reshape(q.shape), lse.reshape(B, Hq, Sq)
-
-
 class _MHA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
-        return _fwd_flat(q, k, v, causal, window, q_offset)[0]
+        qf, kf, vf = (t.contiguous() for t in _flatten(q, k, v))
+        out, lse = _kernel.flash_fwd(qf, kf, vf, causal=causal,
+                                     window=window, scale=q.shape[-1] ** -0.5,
+                                     q_offset=q_offset)
+        ctx.save_for_backward(qf, kf, vf, out, lse)
+        ctx.mask = (causal, window, q_offset)
+        ctx.shapes = (q.shape, k.shape)
+        return out.reshape(q.shape)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            f"flash_bwd is not ported yet: {TRAINING_ITEM}")
+        qf, kf, vf, out, lse = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        q_shape, k_shape = ctx.shapes
+        do = g.reshape(out.shape).contiguous()
+        delta = torch.sum(out.float() * do.float(), dim=-1)
+        dq, dk, dv = _kernel.flash_bwd(
+            qf, kf, vf, do, lse, delta, causal=causal, window=window,
+            scale=qf.shape[-1] ** -0.5, q_offset=q_offset)
+        return (dq.reshape(q_shape), dk.reshape(k_shape),
+                dv.reshape(k_shape), None, None, None)
 
 
 def mha(q, k, v, causal: bool = True, window: int = 0, q_offset: int = 0):

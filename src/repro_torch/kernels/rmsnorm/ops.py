@@ -1,10 +1,11 @@
-"""The RMSNorm op of the model: the kernel wrapper, forward only.
+"""The RMSNorm op of the model: the kernel's forward and the analytic VJP.
 
-Port of ``repro/kernels/rmsnorm/ops.py::rmsnorm`` for serving.  The JAX op
-has a custom VJP (the analytic backward); this slice serves, so the op is a
-``torch.autograd.Function`` whose backward raises until the training slice
-(ROADMAP queue 1 item 15b) ports it: no gradient comes silently from plain
-PyTorch.
+Port of ``repro/kernels/rmsnorm/ops.py::rmsnorm`` (a ``jax.custom_vjp``):
+the forward runs the ``rmsnorm_fwd`` kernel wrapper and keeps x and scale;
+the backward is the JAX package's analytic one (jnp there, plain PyTorch
+here: the TPU has no backward kernel for it), in float32, with ``dscale``
+summed over every leading axis and each gradient returned in its input's
+dtype.
 """
 from __future__ import annotations
 
@@ -12,18 +13,30 @@ import torch
 
 from repro_torch.kernels.rmsnorm import kernel as _kernel
 
-TRAINING_ITEM = "ROADMAP queue 1 item 15b (LM training)"
+
+def rmsnorm_vjp(x, scale, g, eps: float):
+    """(dx, dscale) of ``x * rsqrt(mean(x^2) + eps) * scale`` for the
+    cotangent ``g``: ``repro/kernels/rmsnorm/ops.py::_bwd``."""
+    xf, gf, sf = x.float(), g.float(), scale.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    gs = gf * sf
+    dx = r * (gs - xhat * torch.mean(gs * xhat, dim=-1, keepdim=True))
+    dscale = torch.sum(gf * xhat, dim=tuple(range(x.dim() - 1)))
+    return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
 class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
         return _kernel.rmsnorm_fwd(x, scale, eps=eps)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            f"the rmsnorm backward is not ported yet: {TRAINING_ITEM}")
+        x, scale = ctx.saved_tensors
+        return (*rmsnorm_vjp(x, scale, g, ctx.eps), None)
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):

@@ -1,26 +1,33 @@
-"""GQA transformer LM: the serving path (prefill and decode) of dense stacks.
+"""GQA transformer LM: serving (prefill and decode) and training of dense
+stacks.
 
 Port of ``repro/models/transformer.py`` for one device: ``LMConfig`` and
 its parameter counts, ``param_shapes``, ``init_params`` (the JAX init law),
-``forward_hidden``, ``forward``, ``prefill``, ``init_kv_cache`` and
-``decode_step``.  Parameters are a plain dict laid out like the JAX pytree:
+``forward_hidden``, ``forward``, ``loss_fn``, ``prefill``, ``init_kv_cache``
+and ``decode_step``, plus :func:`value_and_grad` (``jax.value_and_grad`` of
+``loss_fn``).  Parameters are a plain dict laid out like the JAX pytree:
 ``embed`` (vocab, d), ``head`` (d, vocab), ``ln_f`` (d,) and ``blocks``, one
 dict per ``block_pattern`` position whose leaves are stacked over cycles,
 ``(C, ...)``; :func:`params_from_numpy` carries a JAX tree across.
 
 The JAX package scans the stacked layers and shards every intermediate; the
-port loops over them on one device.  RMSNorm and attention go through the
-backend seam (``core/backend.py``): ``kernel`` runs the ``rmsnorm_fwd`` and
-``flash_fwd`` kernels (their plain versions for CPU tensors), ``ref`` the
-plain reference path.  Decode attention is plain matmuls, as the JAX package
-writes it (einsums, no Pallas kernel), in a grouped form that never repeats
-k and v over the G query heads of a kv head.  ``decode_step`` writes the KV
-cache in place and returns it.  The entry points run their matmuls with
-f32 accumulation as XLA does (:func:`_f32_accumulation`).
+port loops over them on one device, taking the layers of a stacked leaf
+with one ``unbind`` (whose backward stacks the layers' gradients once), and
+with ``cfg.remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``, as ``jax.checkpoint`` of the scanned cycle).
+RMSNorm and attention go through the backend seam (``core/backend.py``):
+``kernel`` runs the ``rmsnorm_fwd`` and flash kernels, forward and backward
+(their plain versions for CPU tensors), ``ref`` the plain reference path
+under PyTorch autograd.  Decode attention is plain matmuls, as the JAX
+package writes it (einsums, no Pallas kernel), in a grouped form that never
+repeats k and v over the G query heads of a kv head.  ``decode_step``
+writes the KV cache in place and returns it.  The entry points, and the
+backward of :func:`value_and_grad`, run their matmuls with f32 accumulation
+as XLA does (:func:`_f32_accumulation`).
 
 MoE blocks (``models/moe.py``) and the collective matmul
 (``dist/overlap.py``) raise ``NotImplementedError`` until their slices port
-them; the training loss waits for the training slice.
+them.
 """
 from __future__ import annotations
 
@@ -31,9 +38,12 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.backend import resolve, resolve_device
 from repro_torch.core.backend import rmsnorm as _rmsnorm
+from repro_torch.core.tree import leaves, tree_map
+from repro_torch.core.tree import set_path as _set
 from repro_torch.models.attention import mha
 
 MOE_ITEM = "ROADMAP queue 1 item 15c (models/moe.py and the MoE configs)"
@@ -126,27 +136,6 @@ def param_shapes(cfg: LMConfig) -> dict:
                        for k in cfg.block_pattern]}
 
 
-def leaves(tree):
-    """(path, leaf) in ``jax.tree.flatten`` order: dict keys sorted, lists
-    in order.  ``path`` is a tuple of keys and indices."""
-    if isinstance(tree, dict):
-        for key in sorted(tree):
-            for path, leaf in leaves(tree[key]):
-                yield (key, *path), leaf
-    elif isinstance(tree, list):
-        for i, sub in enumerate(tree):
-            for path, leaf in leaves(sub):
-                yield (i, *path), leaf
-    else:
-        yield (), tree
-
-
-def _set(tree, path, value):
-    for key in path[:-1]:
-        tree = tree[key]
-    tree[path[-1]] = value
-
-
 def _empty_like_tree(cfg: LMConfig) -> dict:
     return {"blocks": [{} for _ in cfg.block_pattern]}
 
@@ -182,13 +171,14 @@ def _to_torch(a, shape, dtype, dev) -> torch.Tensor:
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device=dev, dtype=dtype)
+    return t.to(device=dev, dtype=dtype, copy=True)
 
 
 def params_from_numpy(cfg: LMConfig, tree, *, device=None) -> dict:
     """The port's params from a JAX param tree held as numpy arrays (what
     ``jax.device_get(init_params(...))`` gives), cast to ``cfg.dtype`` on
-    ``device``."""
+    ``device``.  Each leaf is a copy: training updates the params in
+    place, and must not write into the caller's arrays."""
     dev = resolve_device(device)
     out = _empty_like_tree(cfg)
     for path, shape in leaves(param_shapes(cfg)):
@@ -291,10 +281,15 @@ def _block(p, cfg: LMConfig, x, positions, be, kv_cache=None,
 
 
 def _layers(params, cfg: LMConfig):
-    """(cycle, pattern position, that layer's params) in execution order."""
+    """(cycle, pattern position, that layer's params) in execution order.
+    Each stacked leaf is split once: under autograd, indexing it layer by
+    layer would give every layer's gradient a zero tensor of the whole
+    stack to add into."""
+    per = [{n: t.unbind(0) for n, t in blk.items()}
+           for blk in params["blocks"]]
     for c in range(cfg.n_cycles):
         for j in range(len(cfg.block_pattern)):
-            yield c, j, {n: t[c] for n, t in params["blocks"][j].items()}
+            yield c, j, {n: ts[c] for n, ts in per[j].items()}
 
 
 @contextlib.contextmanager
@@ -323,8 +318,14 @@ def forward_hidden(params, cfg: LMConfig, tokens, positions=None, *,
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
     x = params["embed"][tokens.long()].to(cfg.dtype)
+    remat = cfg.remat and torch.is_grad_enabled() and \
+        any(t.requires_grad for _, t in leaves(params))
     for _, _, bp in _layers(params, cfg):
-        x = _block(bp, cfg, x, positions, be)
+        if remat:
+            x = checkpoint(_block, bp, cfg, x, positions, be,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block(bp, cfg, x, positions, be)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _rmsnorm(x, params["ln_f"], backend=be), aux
 
@@ -334,6 +335,36 @@ def forward(params, cfg: LMConfig, tokens, positions=None, *, backend=None):
     """tokens (B, S) -> logits (B, S, V) float32, aux."""
     x, aux = forward_hidden(params, cfg, tokens, positions, backend=backend)
     return (x @ params["head"]).float(), aux
+
+
+def loss_fn(params, cfg: LMConfig, tokens, targets, *, backend=None):
+    """Mean next-token NLL over the targets >= 0 (f32 log-softmax), plus
+    ``aux_loss_weight * aux``.  Returns (loss, {"nll", "aux"})."""
+    logits, aux = forward(params, cfg, tokens, backend=backend)
+    logp = torch.log_softmax(logits, dim=-1)
+    mask = targets >= 0
+    nll = -torch.gather(logp, -1, targets.clamp(min=0).long()[..., None])
+    loss = torch.sum(nll[..., 0] * mask) / mask.sum().clamp(min=1)
+    return loss + cfg.aux_loss_weight * aux, {"nll": loss, "aux": aux}
+
+
+@_f32_accumulation()
+def value_and_grad(params, cfg: LMConfig, tokens, targets, *,
+                   backend=None):
+    """``jax.value_and_grad(loss_fn, has_aux=True)``: ((loss, metrics),
+    grads), grads a tree like ``params`` in the params' dtypes.  The
+    gradient is taken with respect to detached aliases of the leaves (the
+    caller's tensors are not marked), and the backward, with the blocks'
+    recomputation under remat, runs under the forward's f32
+    accumulation."""
+    tree = tree_map(lambda t: t.detach().requires_grad_(), params)
+    paths, xs = zip(*leaves(tree))
+    loss, metrics = loss_fn(tree, cfg, tokens, targets, backend=backend)
+    grads = _empty_like_tree(cfg)
+    for path, g in zip(paths, torch.autograd.grad(loss, xs)):
+        _set(grads, path, g)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), \
+        grads
 
 
 @_f32_accumulation()

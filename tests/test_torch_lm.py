@@ -246,8 +246,9 @@ def test_kernel_backend_goes_through_the_kernel_wrappers(monkeypatch):
 
 
 def test_entry_points_sum_matmuls_in_f32(monkeypatch):
-    """``forward``, ``prefill`` and ``decode_step`` run with TF32 and the
-    reduced-precision bf16 reduction off (the JAX package's f32
+    """``forward``, ``prefill``, ``decode_step`` and ``value_and_grad``
+    (its backward and the remat recompute in it included) run with TF32
+    and the reduced-precision bf16 reduction off (the JAX package's f32
     accumulation), and give the caller's settings back afterwards."""
     m = torch.backends.cuda.matmul
     monkeypatch.setattr(m, "allow_tf32", True)
@@ -262,11 +263,17 @@ def test_entry_points_sum_matmuls_in_f32(monkeypatch):
     params = T.params_from_numpy(cfg, numpy_params(cfg, 1), device="cpu")
     toks = torch.from_numpy(_tokens(cfg, 1, 8, 4))
     cache = T.init_kv_cache(cfg, 1, 8, device="cpu")
-    for call in (lambda: T.forward(params, cfg, toks),
-                 lambda: T.prefill(params, cfg, toks),
-                 lambda: T.decode_step(params, cfg, toks[:, :1], cache, 0)):
+    remat = dataclasses.replace(cfg, remat=True)
+    L = cfg.n_layers
+    # forward: 2L + 1 norms; the remat recompute in the backward: 2L more
+    for n, call in ((2 * L + 1, lambda: T.forward(params, cfg, toks)),
+                    (2 * L + 1, lambda: T.prefill(params, cfg, toks)),
+                    (2 * L + 1, lambda: T.decode_step(params, cfg,
+                                                      toks[:, :1], cache, 0)),
+                    (4 * L + 1, lambda: T.value_and_grad(params, remat, toks,
+                                                         toks))):
         seen.clear()
         call()
-        assert seen and set(seen) == {(False, False)}
+        assert len(seen) == n and set(seen) == {(False, False)}
         assert (m.allow_tf32, m.allow_bf16_reduced_precision_reduction) == \
             (True, True)
