@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's A1 read path and LM serving and training paths
-on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's A1 read path, LM serving and training paths and
+GNN/recsys zoo on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # the whole run (one GPU, ~10 minutes)
     python3 chip_smoke.py --quick    # build and check the kernels only
@@ -11,9 +11,10 @@ Phases, each printed on its own line:
   2. build — the CUDA kernels under ``src/repro_torch/csrc``, one ``nvcc``
      each, in parallel;
   3. kernel checks — every kernel against its plain PyTorch version on the
-     card at edge-case shapes (the int kernels and ``knn_topk`` exactly,
-     floats compared as bits; ``rmsnorm_fwd``, ``flash_fwd`` and the two
-     ``flash_bwd`` kernels within the tolerances stated beside their
+     card at edge-case shapes (the int kernels, ``knn_topk`` and f32
+     ``embedding_bag`` exactly, floats compared as bits; ``rmsnorm_fwd``,
+     ``flash_fwd``, the two ``flash_bwd`` kernels, ``segment_spmm`` and
+     bf16 ``embedding_bag`` within the tolerances stated beside their
      checks);
   4. load — one shard of the a1-kg paper-scale config (one A1 machine's
      share of the §6 graph) filled by the port's film-KG loader;
@@ -49,8 +50,24 @@ Phases, each printed on its own line:
      step: the first step's loss, gradient norm and gradients against
      ``backend="ref"``, then 2 warm-up and 8 timed steps on one batch whose
      loss must fall);
+ 9c. zoo — after phase 9b's model is freed, gcn-cora, graphsage-reddit
+     and bst FULL (float32, AdamW with f32 moments) at their shape cells:
+     ``zoo/gcn-cora/full_graph_sm`` (``cora_like(1.0)``) and
+     ``zoo/graphsage-reddit/minibatch_lg`` (a synthetic graph of the
+     fanout sample's 169,984 nodes and 168,960 edges), each first step's
+     loss and gradients on the card against the CPU, then 2 warm-up and 8
+     timed ``gnn_train_step``s; ``zoo/gcn-cora/ogb_products`` (2,449,029
+     nodes, 61,859,140 edges) timed; ``zoo/bst/check`` (n_items cut to
+     1,000,000: logits and gradients against the CPU),
+     ``zoo/bst/train_batch`` (10^8 items, batch 65,536) timed, and
+     ``zoo/bst/serve_p99`` / ``serve_bulk``; then the zoo path: the two
+     kernels through their ``ops`` entry points, forward and backward, at
+     those cells' inputs (``segment_spmm`` over ogb_products' features with
+     an ELL of each node's first 25 in-neighbours, ``embedding_bag`` over
+     BST's item table with the train batch's histories as bags), and
+     ``segment_spmm`` against the model's ``common.spmm`` on cora;
  10. kernels — each kernel at the inputs the main path gave it: its
-     launches during phases 5-9b, its time beside the plain version's, the
+     launches during phases 5-9c, its time beside the plain version's, the
      bound and a library call, as one JSON line;
  11. small reference — small stores against plain set computations and a
      numpy k-NN in the kernels' summation order, on one shard and on a
@@ -58,10 +75,10 @@ Phases, each printed on its own line:
 
 Each of phases 5-9b sets the kernels' launch counts to 0 just before its
 timed batches, calls or steps (per budget mode or cell) and reads them just
-after.
+after; phase 9c does so around its kernel calls.
 Any failed check raises, so the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 before
-printing any result.  ``--rehearse`` runs phases 4-9b and 11 at a tiny size
+printing any result.  ``--rehearse`` runs phases 4-9c and 11 at a tiny size
 on the CPU (plain kernel versions, no build) and then exits 1.
 """
 from __future__ import annotations
@@ -134,6 +151,29 @@ REMAT_TOL = 1e-5
 # least cosine 0.99961.  One lost kv-head group of wk's 24 x 8 (of equal
 # norm) would read sqrt(1 - 1/192) = 0.9974, one lost layer 0.979
 TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_MIN_COSINE = 1e-4, 3e-3, 0.999
+# phase 9c, the zoo: gcn-cora, graphsage-reddit and bst FULL
+# (src/repro/configs/{gcn_cora,graphsage_reddit,bst}.py) at their shape
+# cells (src/repro/configs/registry.py:106-131); None takes the cell's own
+# geometry or batch.  ell_k: GraphSAGE's first-hop fanout (arXiv:1706.02216)
+ZOO_FULL = dict(cora_scale=1.0, reduced_geometry=False, ogb=None,
+                bst_items=None, bst_batch=None, serve={}, serve_calls=8,
+                check_items=1_000_000, check_batch=4_096, ell_k=25,
+                warm_steps=2, timed_steps=8)
+ZOO_REHEARSE = dict(cora_scale=0.1, reduced_geometry=True,
+                    ogb=(3_000, 12_000, 100, 1), bst_items=10_000,
+                    bst_batch=256, serve=dict(serve_p99=16, serve_bulk=512),
+                    serve_calls=2, check_items=1_000, check_batch=64,
+                    ell_k=25, warm_steps=1, timed_steps=2)
+# the zoo's card-against-CPU checks, float32 throughout, max |a - b| over
+# max |b|: the card adds the edges' messages with atomics and cuBLAS sums
+# its f32 products in other orders than the CPU (each op ~1e-7 relative,
+# sums over thousands of edges and nodes reach ~1e-6); the loss is one
+# mean, each gradient leaf a sum over the whole graph or batch
+ZOO_LOSS_TOL, ZOO_GRAD_TOL = 1e-5, 1e-4
+# segment_spmm (every in-neighbour, norm 1/deg) against common.spmm's mean:
+# f32 sums of the same terms in another order, a multiply by 1/deg against
+# a divide by deg
+ZOO_SPMM_TOL = 1e-5
 
 KERNELS = {   # wrapper -> (source, the TPU kernel's pallas_call it replaces)
     "searchsorted_left_ranged": (
@@ -159,20 +199,25 @@ KERNELS = {   # wrapper -> (source, the TPU kernel's pallas_call it replaces)
                       "src/repro/kernels/flash_attention/kernel.py:212"),
     "flash_bwd_dq": ("src/repro_torch/csrc/flash_bwd.cu",
                      "src/repro/kernels/flash_attention/kernel.py:234"),
+    "segment_spmm": ("src/repro_torch/csrc/segment_spmm.cu",
+                     "src/repro/kernels/segment_spmm/kernel.py:71"),
+    "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
+                      "src/repro/kernels/embedding_bag/kernel.py:63"),
 }
 LM_KERNELS = ("rmsnorm_fwd", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # the main path each kernel belongs to: phase 5's per-query serve, phase
 # 6's shared serve, phase 7's nearest serve, phase 8's mesh serve, phase
-# 9's LM prefill or phase 9b's LM train step
+# 9's LM prefill, phase 9b's LM train step or phase 9c's zoo
 PATH_OF = {"searchsorted_left_ranged": "per_query", "expand": "per_query",
            "dedup_compact_rows": "per_query", "sort_rows": "per_query",
            "sort_pairs": "shared", "knn_topk": "nearest",
            "searchsorted_left": "mesh", "rmsnorm_fwd": "lm_prefill",
            "flash_fwd": "lm_prefill", "flash_bwd_dkv": "lm_train",
-           "flash_bwd_dq": "lm_train"}
+           "flash_bwd_dq": "lm_train", "segment_spmm": "zoo",
+           "embedding_bag": "zoo"}
 # float kernels: (rtol, atol) of the kernel against its plain version, per
-# output and input dtype (see _check_rmsnorm, _check_flash and
-# _check_flash_bwd)
+# output and input dtype (see _check_rmsnorm, _check_flash,
+# _check_flash_bwd, _check_segment_spmm and _check_embedding_bag)
 FLOAT_TOL = {"rmsnorm_fwd": {"float32": [(1e-5, 1e-5)],
                              "bfloat16": ["ulp"]},
              "flash_fwd": {"float32": [(2e-5, 2e-5), (1e-5, 1e-5)],
@@ -180,7 +225,11 @@ FLOAT_TOL = {"rmsnorm_fwd": {"float32": [(1e-5, 1e-5)],
              "flash_bwd_dkv": {"float32": [(2e-4, 2e-4)] * 2,
                                "bfloat16": ["scale_ulp"] * 2},
              "flash_bwd_dq": {"float32": [(2e-4, 2e-4)],
-                              "bfloat16": ["scale_ulp"]}}
+                              "bfloat16": ["scale_ulp"]},
+             "segment_spmm": {"float32": [(5e-5, 5e-5)],
+                              "bfloat16": [(2 ** -7, 1e-4)]},
+             "embedding_bag": {"float32": [(0.0, 0.0)],
+                               "bfloat16": ["ulp"]}}
 
 
 def say(tag: str, **kw) -> None:
@@ -350,7 +399,9 @@ def phase_kernel_checks():
     torch.cuda.synchronize()
     say("KERNEL_CHECKS", cases=n_cases, equal=True)
     errs = {"rmsnorm_fwd": _check_rmsnorm(dev), "flash_fwd": _check_flash(dev),
-            "flash_bwd": _check_flash_bwd(dev)}
+            "flash_bwd": _check_flash_bwd(dev),
+            "segment_spmm": _check_segment_spmm(dev),
+            "embedding_bag": _check_embedding_bag(dev)}
     torch.cuda.synchronize()
     say("KERNEL_CHECKS_FLOAT", cases={k: len(v) for k, v in errs.items()},
         within_tolerance=True, max_abs_err={
@@ -636,6 +687,88 @@ def _check_flash_bwd(dev):
     return out
 
 
+def _check_segment_spmm(dev):
+    """segment_spmm against its plain version: with and without W and
+    norm, f32 and bf16; D of 1, 31, 32, 33, 602 and 1433 with Dout up to
+    130 (two W column tiles); K of 1, 7 and 40; row counts that leave a
+    partial tile; a row of padding only and an id at the last row.  f32
+    within 5e-5 (the W product sums up to 1,433 products in another order
+    than cuBLAS; without W both sum in the same order), bf16 within one
+    bf16 ulp plus 1e-4 near 0 (both round an f32 value once).  Returns
+    [(dtype, max abs err)]."""
+    import torch
+    from repro_torch.kernels.segment_spmm import kernel as sk
+    gen = torch.Generator(device=dev).manual_seed(14)
+    out = []
+    N = 3000
+    for dt in (torch.float32, torch.bfloat16):
+        tol = _float_tol("segment_spmm", dt)[0]
+        for D, d_out in ((1, 5), (31, 16), (32, 128), (33, 130), (602, 128),
+                         (1433, 16)):
+            x = torch.randn((N, D), generator=gen, device=dev).to(dt)
+            w = (torch.randn((D, d_out), generator=gen, device=dev)
+                 * D ** -0.5).to(dt)
+            for R, K in ((257, 7), (64, 1), (33, 40)):
+                ids = torch.randint(-1, N, (R, K), generator=gen, device=dev,
+                                    dtype=torch.int32)
+                ids[0] = -1
+                ids[-1, 0] = N - 1
+                norm = torch.rand(R, generator=gen, device=dev)
+                for ww, nn in ((w, norm), (None, None), (w, None),
+                               (None, norm)):
+                    err = _close(sk.segment_spmm(x, ids, ww, nn),
+                                 sk.segment_spmm_plain(x, ids, ww, nn),
+                                 f"segment_spmm {dt} D={D} R={R} K={K} "
+                                 f"w={ww is not None} norm={nn is not None}",
+                                 tol)
+                    out.append((str(dt).replace("torch.", ""), err))
+    return out
+
+
+def _check_embedding_bag(dev):
+    """embedding_bag against its plain version, sum and mean: f32 bit for
+    bit (both sum the slots in order in f32 and divide once), bf16 within
+    one ulp (the same f32 value rounded once); D of 1, 31, 32, 33, 602 and
+    1433; bags of one slot, of 20 (BST's) and of 70 (three chunks of 32
+    ids); empty bags (every id -1) and ids at the last row; and a float32
+    table of 68,000,000 x 32 (2.18e9 elements, past an int32 offset) with
+    ids near its end.  Returns [(dtype, max abs err)]."""
+    import torch
+    from repro_torch.kernels.embedding_bag import kernel as ek
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = []
+
+    def one(table, ids, what):
+        for mode in ek.MODES:
+            got = ek.embedding_bag(table, ids, mode=mode)
+            want = ek.embedding_bag_plain(table, ids, mode=mode)
+            if table.dtype == torch.float32:
+                _exact(_bits((got,)), _bits((want,)), f"{what} {mode}")
+            out.append((str(table.dtype).replace("torch.", ""), _close(
+                got, want, f"{what} {mode}",
+                _float_tol("embedding_bag", table.dtype)[0])))
+    V = 1000
+    for dt in (torch.float32, torch.bfloat16):
+        for D in (1, 31, 32, 33, 602, 1433):
+            table = torch.randn((V, D), generator=gen, device=dev).to(dt)
+            for B, L in ((37, 1), (300, 20), (5, 70)):
+                ids = torch.randint(-1, V, (B, L), generator=gen, device=dev,
+                                    dtype=torch.int32)
+                ids[0] = -1
+                ids[-1, 0] = V - 1
+                one(table, ids, f"embedding_bag {dt} D={D} B={B} L={L}")
+    V, D = 68_000_000, 32
+    table = torch.randn((V, D), generator=gen, device=dev)
+    ids = torch.randint(V - 3_000_000, V, (4096, 20), generator=gen,
+                        device=dev, dtype=torch.int32)
+    ids[::7, 3] = -1
+    ids[0, 0] = V - 1
+    one(table, ids, f"embedding_bag float32 V={V} (> 2^31 elements)")
+    del table
+    torch.cuda.empty_cache()
+    return out
+
+
 class Recorder:
     """Wraps the kernel wrappers the backend calls, keeping the inputs of
     the largest call of each (by the work it asks for)."""
@@ -647,13 +780,16 @@ class Recorder:
         from repro_torch.kernels.flash_attention import kernel as fk
         from repro_torch.kernels.rmsnorm import kernel as rk
         from repro_torch.kernels.sorted_lookup import kernel as sk
+        from repro_torch.kernels.embedding_bag import kernel as ebk
+        from repro_torch.kernels.segment_spmm import kernel as ssk
         self.best = {}
         self.mods = {"searchsorted_left_ranged": sk, "expand": ek,
                      "dedup_compact_rows": dk, "sort_rows": dk,
                      "sort_pairs": dk, "knn_topk": kk,
                      "searchsorted_left": sk, "rmsnorm_fwd": rk,
                      "flash_fwd": fk, "flash_bwd_dkv": fk,
-                     "flash_bwd_dq": fk}
+                     "flash_bwd_dq": fk, "segment_spmm": ssk,
+                     "embedding_bag": ebk}
         self.only = None          # record just these wrappers (None: all)
         self.orig = {n: getattr(m, n) for n, m in self.mods.items()}
         for name, mod in self.mods.items():
@@ -670,7 +806,9 @@ class Recorder:
             "rmsnorm_fwd": lambda a, kw: a[0].numel(),
             "flash_fwd": lambda a, kw: a[0].numel() * a[1].shape[1],
             "flash_bwd_dkv": lambda a, kw: a[0].numel() * a[1].shape[1],
-            "flash_bwd_dq": lambda a, kw: a[0].numel() * a[1].shape[1]}
+            "flash_bwd_dq": lambda a, kw: a[0].numel() * a[1].shape[1],
+            "segment_spmm": lambda a, kw: a[1].numel() * a[0].shape[1],
+            "embedding_bag": lambda a, kw: a[1].numel() * a[0].shape[1]}
 
     def _wrap(self, name, fn):
         def rec(*args, **kw):
@@ -1710,6 +1848,338 @@ def phase_lm_train(dev, cfg, sizes, launches, rec):
         config=cfg.name, source="src/repro/configs/h2o_danube_3_4b.py")
 
 
+# ---------------------------------------------------------------------------
+# the GNN and recsys zoo: gcn-cora, graphsage-reddit and bst
+# ---------------------------------------------------------------------------
+
+def _ell(batch, n: int, k=None):
+    """(ids (n, k) int32, in-degree (n,) float32): each node's first ``k``
+    in-neighbours in edge order, padded with -1 (``k`` None: the largest
+    in-degree, so that every edge is kept).  The ELL layout
+    ``segment_spmm`` takes; the JAX package has no builder for it."""
+    import torch
+    ok = batch.edge_src >= 0
+    src, dst = batch.edge_src[ok].long(), batch.edge_dst[ok].long()
+    order = torch.argsort(dst, stable=True)
+    src, dst = src[order], dst[order]
+    deg = torch.bincount(dst, minlength=n)
+    rank = torch.arange(dst.numel(), device=dst.device) - \
+        (torch.cumsum(deg, 0) - deg)[dst]
+    k = int(deg.max()) if k is None else k
+    keep = rank < k
+    ids = torch.full((n, k), -1, dtype=torch.int32, device=dst.device)
+    ids[dst[keep], rank[keep]] = src[keep].int()
+    return ids, deg.float()
+
+
+def _zoo_check(dev, cell, mod, cfg, params_cpu, args_cpu, logits=None):
+    """The first step's loss and every gradient (``tree.value_and_grad``
+    of ``mod.loss_fn``) on the card against the same step on the CPU (the
+    port's code, which the CPU tests hold against JAX), from the same
+    params and inputs; ``logits`` (a forward) compared as well."""
+    from repro_torch.core.tree import leaves, tree_map, value_and_grad
+    args_dev = [a.to(dev) for a in args_cpu]
+    params = tree_map(lambda t: t.to(dev), params_cpu)
+    runs = {}
+    for name, p, a in (("cpu", params_cpu, args_cpu),
+                       ("dev", params, args_dev)):
+        t0 = time.perf_counter()
+        (loss, _), g = value_and_grad(mod.loss_fn, p, cfg, *a)
+        out = logits(p, a) if logits else None
+        _sync(dev)
+        runs[name] = (float(loss), dict(leaves(g)), out,
+                      time.perf_counter() - t0)
+    (lc, gc, oc, _), (ld, gd, od, _) = runs["cpu"], runs["dev"]
+    loss_err = abs(ld - lc) / abs(lc)
+    errs = {".".join(map(str, k)): _rel_err(gd[k].cpu(), gc[k]) for k in gc}
+    out_err = _rel_err(od.cpu(), oc) if logits else None
+    check(loss_err <= ZOO_LOSS_TOL
+          and all(e <= ZOO_GRAD_TOL for e in errs.values())
+          and (out_err is None or out_err <= ZOO_LOSS_TOL),
+          f"{cell}: card vs CPU loss {ld} vs {lc}, logits {out_err}, "
+          f"gradients {errs}")
+    say("ZOO_CHECK", cell=cell, config=cfg.name, loss_cpu=lc, loss_dev=ld,
+        loss_rel_err=loss_err, logits_rel_err=out_err,
+        grad_rel_err_max=max(errs.values()), grad_rel_err=errs,
+        tolerance=dict(loss=ZOO_LOSS_TOL, grads=ZOO_GRAD_TOL),
+        seconds={k: v[3] for k, v in runs.items()})
+    return params
+
+
+def _zoo_timed(dev, cell, step, sizes, **line):
+    """``warm_steps`` then ``timed_steps`` train steps (``step()`` returns
+    the metrics), host clock ending in a synchronize; the loss must stay
+    finite and fall from the first step to the last.  Prints a ZOO_TRAIN
+    line; returns the p50 in seconds."""
+    import numpy as np
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, secs = [], [], []
+    for i in range(sizes["warm_steps"] + sizes["timed_steps"]):
+        t0 = time.perf_counter()
+        m = step()
+        _sync(dev)
+        if i >= sizes["warm_steps"]:
+            secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    check(all(np.isfinite(losses + gnorms)), f"{cell}: {losses} {gnorms}")
+    check(losses[-1] < losses[0], f"{cell}: the loss did not fall: {losses}")
+    p50 = float(np.median(secs))
+    say("ZOO_TRAIN", cell=cell, p50_ms=p50 * 1e3, ms=[s * 1e3 for s in secs],
+        losses=losses, gnorms=gnorms,
+        peak_memory_allocated=(torch.cuda.max_memory_allocated()
+                               if dev.type == "cuda" else None),
+        **{k: (v(p50) if callable(v) else v) for k, v in line.items()})
+    if dev.type == "cuda":
+        _profile(cell, step, p50)
+    return p50
+
+
+def _gnn_cell(dev, arch_conf, shape_id, sizes, seed, *, batch_cpu=None,
+              geometry=None, reduced=()):
+    """One GNN cell at the config's full widths, ``d_in`` the features of
+    its graph (as ``steps.gnn_cell_config`` sets it): ``batch_cpu``, whose
+    first step on the card is checked against the CPU, or a synthetic graph
+    of ``geometry`` (the cell's own by default) made on the card; then the
+    timed AdamW steps.  Returns (params, batch)."""
+    import dataclasses
+    import torch
+    from repro_torch.data.graphs import synthetic_graph_batch
+    from repro_torch.launch import steps
+    from repro_torch.optim.optimizers import AdamWConfig, init_opt_state
+    spec = arch_conf.SPEC
+    if batch_cpu is not None:
+        N, E = batch_cpu.node_feat.shape[0], batch_cpu.edge_src.shape[0]
+        dF = batch_cpu.node_feat.shape[1]
+    else:
+        N, E, dF, _ = geometry or steps.gnn_geometry(
+            spec.cell(shape_id), sizes["reduced_geometry"])
+    cfg = dataclasses.replace(spec.model, d_in=dF)
+    mod = steps.gnn_module(cfg)
+    cell = f"zoo/{spec.arch_id}/{shape_id}"
+    gen = torch.Generator(device="cpu" if batch_cpu is not None else dev)
+    gen.manual_seed(seed)
+    if batch_cpu is not None:
+        p_cpu = mod.init_params(cfg, gen, device="cpu")
+        params = _zoo_check(dev, cell, mod, cfg, p_cpu, [batch_cpu])
+        batch = batch_cpu.to(dev)
+        del p_cpu
+    else:
+        t0 = time.perf_counter()
+        batch = synthetic_graph_batch(N, E, dF, n_classes=cfg.n_classes,
+                                      seed=seed, device=dev)
+        say("ZOO_LOAD", cell=cell, nodes=N, edges=E, d_feat=dF,
+            seconds=time.perf_counter() - t0)
+        params = mod.init_params(cfg, gen, device=dev)
+    ocfg = AdamWConfig()
+    state = init_opt_state(params, ocfg)
+
+    def step():
+        nonlocal params, state
+        params, state, m = steps.gnn_train_step(params, state, batch, cfg,
+                                                ocfg)
+        return m
+    _zoo_timed(dev, cell, step, sizes, config=cfg.name, nodes=N, edges=E,
+               d_feat=dF, layers=cfg.n_layers, reduced=list(reduced),
+               source=spec.source, edges_per_s=lambda p50: E / p50)
+    del state
+    return params, batch
+
+
+def _bst_cells(dev, sizes):
+    """zoo/bst/check (n_items cut to ``check_items``: logits and gradients
+    on the card against the CPU), zoo/bst/train_batch (FULL, AdamW f32
+    moments, timed) and the two serve cells with the trained params.
+    Returns (params, the train batch's hist)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import bst
+    from repro_torch.data.recsys import bst_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys as R
+    from repro_torch.optim.optimizers import AdamWConfig, init_opt_state
+    spec = bst.SPEC
+    # check: n_items cut so that the CPU holds the model
+    cfg_c = dataclasses.replace(spec.model, n_items=sizes["check_items"])
+    p_cpu = R.init_params(cfg_c, torch.Generator().manual_seed(21),
+                          device="cpu")
+    b_cpu = bst_batch(batch=sizes["check_batch"], n_items=cfg_c.n_items,
+                      seed=22, device="cpu")
+    _zoo_check(dev, "zoo/bst/check", R, cfg_c, p_cpu, list(b_cpu),
+               logits=lambda p, a: R.forward(p, cfg_c, *a[:3]))
+    del p_cpu, b_cpu
+    cfg = spec.model if sizes["bst_items"] is None else \
+        dataclasses.replace(spec.model, n_items=sizes["bst_items"])
+    c = spec.cell("train_batch")
+    B = sizes["bst_batch"] or steps.recsys_batch(c)
+    t0 = time.perf_counter()
+    params = R.init_params(cfg, torch.Generator(device=dev).manual_seed(23),
+                           device=dev)
+    batch = bst_batch(batch=B, seq_len=cfg.seq_len, n_items=cfg.n_items,
+                      n_dense=cfg.n_dense, seed=24, device=dev)
+    say("ZOO_LOAD", cell="zoo/bst/train_batch", n_items=cfg.n_items,
+        table_bytes=params["item_emb"].numel() * 4, batch=B,
+        seconds=time.perf_counter() - t0)
+    ocfg = AdamWConfig()
+    state = init_opt_state(params, ocfg)
+
+    def step():
+        nonlocal params, state
+        params, state, m = steps.recsys_train_step(params, state, *batch,
+                                                   cfg, ocfg)
+        return m
+    reduced = [] if B == c.geometry["batch"] else \
+        [f"batch {c.geometry['batch']} -> {B}"]
+    if cfg.n_items != spec.model.n_items:
+        reduced.append(f"n_items {spec.model.n_items} -> {cfg.n_items}")
+    _zoo_timed(dev, "zoo/bst/train_batch", step, sizes, config=cfg.name,
+               batch=B, n_items=cfg.n_items, optimizer=str(ocfg),
+               reduced=reduced, source=spec.source,
+               samples_per_s=lambda p50: B / p50)
+    del state                  # 25.6 GB of moments, before any backward
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for shape_id in ("serve_p99", "serve_bulk"):
+        Bs = sizes["serve"].get(shape_id) or \
+            steps.recsys_batch(spec.cell(shape_id))
+        hist, tgt, dense, _ = bst_batch(batch=Bs, seq_len=cfg.seq_len,
+                                        n_items=cfg.n_items,
+                                        n_dense=cfg.n_dense, seed=25,
+                                        device=dev)
+        secs = []
+        for i in range(1 + sizes["serve_calls"]):
+            t0 = time.perf_counter()
+            out = steps.recsys_serve_step(params, hist, tgt, dense, cfg)
+            _sync(dev)
+            if i:
+                secs.append(time.perf_counter() - t0)
+        check(out.shape == (Bs,) and bool(torch.isfinite(out).all()),
+              f"zoo/bst/{shape_id}: scores {out.shape}")
+        p50 = float(np.median(secs))
+        cell = f"zoo/bst/{shape_id}"
+        say("ZOO_SERVE", cell=cell, batch=Bs, p50_ms=p50 * 1e3,
+            ms=[s * 1e3 for s in secs], samples_per_s=Bs / p50)
+        if dev.type == "cuda":
+            _profile(cell, lambda: steps.recsys_serve_step(
+                params, hist, tgt, dense, cfg), p50)
+        del hist, tgt, dense, out
+    return params, batch[0]
+
+
+def _zoo_kernels(dev, ogb, table, hist, launches, rec):
+    """The zoo path: the two kernels through their ``ops`` entry points,
+    forward and backward, at the inputs the zoo's configs and generators
+    give them (launches counted): ``segment_spmm`` over the ogb_products
+    cell's features, an ELL of each node's first ``ell_k`` in-neighbours,
+    W = the trained layer-1 weight and norm = 1/max(deg, 1);
+    ``embedding_bag`` over BST's item table with the train batch's
+    histories as bags, in sum and mean mode."""
+    import torch
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.kernels.segment_spmm import ops as sops
+    x, ids, w, norm = ogb
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()          # the serve cells' cached blocks
+    rec.only = {"segment_spmm", "embedding_bag"}
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+    y = sops.segment_spmm(xr, ids, wr, norm)
+    dx, dw = torch.autograd.grad(y, (xr, wr), torch.ones_like(y))
+    check(y.shape == (x.shape[0], w.shape[1]) and dx.shape == x.shape
+          and all(bool(torch.isfinite(t).all()) for t in (y, dx, dw)),
+          "zoo segment_spmm: shapes or non-finite values")
+    del y, dx, dw, xr, wr
+    nnz = int((hist >= 0).sum())
+    for mode in ("sum", "mean"):
+        tr = table.detach().requires_grad_()
+        out = eops.embedding_bag(tr, hist, mode)
+        (dt,) = torch.autograd.grad(out, (tr,), torch.ones_like(out))
+        total = float(dt.sum(dtype=torch.float64))
+        want = nnz * table.shape[1] if mode == "sum" else \
+            hist.shape[0] * table.shape[1] - \
+            int(((hist >= 0).sum(1) == 0).sum()) * table.shape[1]
+        check(bool(torch.isfinite(out).all()) and abs(total - want)
+              <= 1e-3 * want, f"zoo embedding_bag {mode}: gradient sums to "
+              f"{total}, want {want}")
+        del tr, out, dt
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    launches["zoo"] = dict(_cuda.LAUNCHES)
+    rec.only = set()
+    if dev.type == "cuda":
+        check(launches["zoo"]["segment_spmm"] == 1
+              and launches["zoo"]["embedding_bag"] == 2,
+              f"zoo kernel launches {launches['zoo']}")
+    say("ZOO_KERNELS", seconds=secs, segment_spmm=dict(
+        rows=ids.shape[0], k=ids.shape[1], d=x.shape[1], d_out=w.shape[1],
+        non_pad=int((ids >= 0).sum())), embedding_bag=dict(
+        table=list(table.shape), bags=list(hist.shape), non_pad=nnz),
+        launches={k: launches["zoo"][k] for k in ("segment_spmm",
+                                                  "embedding_bag")})
+
+
+def _zoo_spmm_cross_check(dev, batch):
+    """On cora_like(1.0): ``segment_spmm`` with every in-neighbour (K the
+    largest in-degree) and norm = 1/deg against the model's own
+    ``common.spmm(x, batch, n, norm="mean")``."""
+    import torch
+    from repro_torch.kernels.segment_spmm import ops as sops
+    from repro_torch.models.gnn import common
+    n = batch.node_feat.shape[0]
+    ids, deg = _ell(batch, n)
+    with torch.no_grad():
+        got = sops.segment_spmm(batch.node_feat, ids, None,
+                                1.0 / torch.clamp(deg, min=1.0))
+        want = common.spmm(batch.node_feat, batch, n, norm="mean")
+    err = _rel_err(got, want)
+    check(err <= ZOO_SPMM_TOL, f"zoo segment_spmm vs common.spmm: {err}")
+    say("ZOO_SPMM_CROSS_CHECK", nodes=n, k=ids.shape[1],
+        d=batch.node_feat.shape[1], rel_err=err, tolerance=ZOO_SPMM_TOL)
+
+
+def phase_zoo(dev, sizes, launches, rec):
+    """Phase 9c: gcn-cora, graphsage-reddit and bst at full width (see the
+    docstring), then the zoo path's two kernels."""
+    import torch
+    from repro_torch.configs import gcn_cora, graphsage_reddit
+    from repro_torch.data.graphs import cora_like
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        check(held < 8 << 30, f"zoo: {held} bytes still held")
+    from repro_torch.data.graphs import synthetic_graph_batch
+    from repro_torch.launch.steps import gnn_geometry
+    cora = cora_like(sizes["cora_scale"], device="cpu")
+    _gnn_cell(dev, gcn_cora, "full_graph_sm", sizes, 31, batch_cpu=cora)
+    N, E, dF, _ = gnn_geometry(graphsage_reddit.SPEC.cell("minibatch_lg"),
+                               sizes["reduced_geometry"])
+    _gnn_cell(dev, graphsage_reddit, "minibatch_lg", sizes, 32,
+              batch_cpu=synthetic_graph_batch(
+                  N, E, dF, n_classes=graphsage_reddit.FULL.n_classes,
+                  seed=32, device="cpu"),
+              reduced=("the fanout sample (data/sampler.py, not ported) "
+                       "-> synthetic_graph_batch of its nodes and edges",))
+    p, batch = _gnn_cell(dev, gcn_cora, "ogb_products", sizes, 33,
+                         geometry=sizes["ogb"])
+    ids, deg = _ell(batch, batch.node_feat.shape[0], sizes["ell_k"])
+    ogb = (batch.node_feat, ids, p["w"][0].detach(),
+           1.0 / torch.clamp(deg, min=1.0))
+    del p, batch, deg
+    table_params, hist = _bst_cells(dev, sizes)
+    _zoo_kernels(dev, ogb, table_params["item_emb"], hist, launches, rec)
+    del table_params
+    _zoo_spmm_cross_check(dev, cora.to(dev))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    say("ZOO_PHASE", seconds=time.perf_counter() - t_phase)
+
+
 def phase_small_reference(dev):
     """A small store: the port's counts against plain set computations."""
     import numpy as np
@@ -1919,6 +2389,31 @@ def _bound(name, args, kw):
         t_bytes = nbytes / HBM_BYTES_PER_S
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes >= t_ops else "operations")
+    elif name == "segment_spmm":
+        # each row of x that an id names read once (a row named by many
+        # ids still once), the ids, W and norm read once, the output
+        # written once; an add a non-padding id's element, a multiply an
+        # aggregated one and 2*D*Dout flops a row
+        x, ids, w, norm = args
+        (R, K), D, es = ids.shape, x.shape[1], x.element_size()
+        nnz = int((ids >= 0).sum())
+        rows = int(torch.unique(ids[ids >= 0]).numel())
+        d_out = D if w is None else w.shape[1]
+        nbytes = (rows * D + R * d_out) * es + 4 * R * K + \
+            (0 if w is None else w.numel() * es) + (0 if norm is None
+                                                     else 4 * R)
+        ops = nnz * D + (0 if norm is None else R * D) + \
+            (0 if w is None else 2 * R * D * d_out)
+    elif name == "embedding_bag":
+        # each table row that an id names read once, the ids read once,
+        # the bags written once; an add a non-padding id's element (and a
+        # divide a bag element in mean mode)
+        table, ids = args
+        (B, L), D, es = ids.shape, table.shape[1], table.element_size()
+        nnz = int((ids >= 0).sum())
+        rows = int(torch.unique(ids[ids >= 0]).numel())
+        nbytes = rows * D * es + 4 * B * L + B * D * es
+        ops = nnz * D + (B * D if kw.get("mode") == "mean" else 0)
     else:
         x = args[0]
         R, W = x.shape
@@ -1953,6 +2448,8 @@ def _library_call(name, args, kw):
     from repro_torch.kernels.dedup_compact import ref as dref
     if name in ("flash_bwd_dkv", "flash_bwd_dq"):
         return _sdpa_bwd(args, kw)
+    if name in ("segment_spmm", "embedding_bag"):
+        return _bag_library(name, args, kw)
     lib = None
     if name == "sort_rows":
         lib = "torch.sort", lambda: torch.sort(args[0], dim=1)
@@ -1975,6 +2472,52 @@ def _library_call(name, args, kw):
     if name == "flash_fwd":
         lib = _sdpa_call(args, kw)
     return (lib[0], _events_ms(lib[1])) if lib else None
+
+
+def _bag_library(name, args, kw):
+    """(label, ms) of ``F.embedding_bag`` over the table (or x) with a zero
+    row appended and padding ids sent to it as ``padding_idx`` (for
+    segment_spmm in sum mode, followed by ``* norm`` and ``torch.matmul``
+    with W, f32 accumulation: three calls).  It counts as the same
+    function only if it agrees with the kernel on these inputs (mean mode:
+    only if its mean leaves the padding out of the count); else the ms is
+    None and the label says why."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.precision import f32_accumulation
+    from repro_torch.kernels.embedding_bag import kernel as ek
+    from repro_torch.kernels.segment_spmm import kernel as sk
+    table, ids = args[0], args[1]
+    V = table.shape[0]
+    padded = torch.cat([table.detach(), table.new_zeros((1, table.shape[1]))])
+    safe = torch.where(ids >= 0, ids, V).long()
+    if name == "embedding_bag":
+        mode = kw.get("mode", "sum")
+        label = f"F.embedding_bag({mode}, padding_idx)"
+
+        def fn():
+            return F.embedding_bag(safe, padded, mode=mode, padding_idx=V)
+        want = ek.embedding_bag(*args, **kw)
+    else:
+        w, norm = args[2], args[3]
+        label = "F.embedding_bag(sum, padding_idx) * norm, torch.matmul: " \
+            "three calls"
+
+        def fn():
+            agg = F.embedding_bag(safe, padded, mode="sum", padding_idx=V)
+            if norm is not None:
+                agg = agg * norm[:, None]
+            if w is None:
+                return agg
+            with f32_accumulation():
+                return agg @ w
+        want = sk.segment_spmm(*args, **kw)
+    err = _rel_err(fn().float(), want.float())
+    if not err <= 1e-5:
+        return f"{label}: not the same function here (rel err {err})", None
+    ms = _events_ms(fn)
+    del padded, safe
+    return f"{label} (rel err {err} to the kernel)", ms
 
 
 def _sdpa_call(args, kw, rows=None):
@@ -2069,6 +2612,8 @@ def phase_kernel_report(launches, best):
     from repro_torch.kernels.knn_topk import kernel as kk
     from repro_torch.kernels.rmsnorm import kernel as rk
     from repro_torch.kernels.sorted_lookup import kernel as sk
+    from repro_torch.kernels.embedding_bag import kernel as ebk
+    from repro_torch.kernels.segment_spmm import kernel as ssk
     fns = {"searchsorted_left_ranged": (sk.searchsorted_left_ranged,
                                         sk.searchsorted_left_ranged_plain),
            "searchsorted_left": (sk.searchsorted_left,
@@ -2082,7 +2627,9 @@ def phase_kernel_report(launches, best):
            "rmsnorm_fwd": (rk.rmsnorm_fwd, rk.rmsnorm_fwd_plain),
            "flash_fwd": (fk.flash_fwd, fk.flash_fwd_plain),
            "flash_bwd_dkv": (fk.flash_bwd_dkv, fk.flash_bwd_dkv_plain),
-           "flash_bwd_dq": (fk.flash_bwd_dq, fk.flash_bwd_dq_plain)}
+           "flash_bwd_dq": (fk.flash_bwd_dq, fk.flash_bwd_dq_plain),
+           "segment_spmm": (ssk.segment_spmm, ssk.segment_spmm_plain),
+           "embedding_bag": (ebk.embedding_bag, ebk.embedding_bag_plain)}
     # the kernels each path must have launched: its own, and the earlier
     # slices' kernels that serve it too
     for path, need in (("shared", ("sort_pairs", "expand",
@@ -2157,7 +2704,7 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
     ap.add_argument("--rehearse", action="store_true",
-                    help="without a GPU: phases 4-9b and 11 at a tiny size "
+                    help="without a GPU: phases 4-9c and 11 at a tiny size "
                          "on the CPU, then exit 1")
     args = ap.parse_args(argv)
     import torch
@@ -2185,6 +2732,7 @@ def main(argv=None) -> int:
         rec.only = set()
         phase_lm(dev, danube.REDUCED, LM_REHEARSE, launches, rec)
         phase_lm_train(dev, danube.REDUCED, LM_REHEARSE, launches, rec)
+        phase_zoo(dev, ZOO_REHEARSE, launches, rec)
         rec.restore()
         phase_small_reference(dev)
         print("chip_smoke: CPU rehearsal finished; no GPU result",
@@ -2213,6 +2761,7 @@ def main(argv=None) -> int:
         rec.only = set()                      # phase_lm records its own
         phase_lm(dev, danube.FULL, LM_FULL, launches, rec)
         phase_lm_train(dev, danube.FULL, LM_FULL, launches, rec)
+        phase_zoo(dev, ZOO_FULL, launches, rec)
         rec.restore()
         phase_kernel_report(launches, rec.best)
         phase_small_reference(dev)

@@ -1,13 +1,16 @@
-"""Shape cells of the LM family.
+"""Architecture specs and their shape cells.
 
-Port of the LM half of ``repro/configs/registry.py`` (``ShapeCell`` and
-``lm_shapes``).  ``ArchSpec``, the registry itself and the GNN and recsys
-templates come with the slices that port those families.
+Port of ``repro/configs/registry.py``: ``ShapeCell``, ``ArchSpec`` and
+``register``, and the LM, GNN and recsys shape templates.  The lookup side
+(``get``, ``all_archs``, ``all_cells``) comes with ROADMAP queue 1 item
+15e; until then a config module's ``SPEC`` is imported directly.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
+
+_REGISTRY: dict[str, "ArchSpec"] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -16,6 +19,28 @@ class ShapeCell:
     kind: str                  # 'train' | 'prefill' | 'decode' | ...
     geometry: dict             # family-specific geometry numbers
     skip: Optional[str] = None   # reason string when the cell is N/A
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    """An architecture: its full-size config, a reduced config (CPU tests)
+    and its shape cells.  (The JAX spec also carries TPU sharding-rule
+    overrides, which one device does not read.)"""
+    arch_id: str
+    family: str                # 'lm' | 'gnn' | 'recsys' | 'a1'
+    model: Any                 # full-size config
+    reduced: Any               # reduced config (CPU tests)
+    shapes: tuple              # tuple[ShapeCell, ...]
+    source: str = ""
+    note: str = ""
+
+    def cell(self, shape_id: str) -> ShapeCell:
+        return cell(self.shapes, shape_id)
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    _REGISTRY[spec.arch_id] = spec
+    return spec
 
 
 def lm_shapes(*, window: int = 0, accum_train: int = 16) -> tuple:
@@ -34,6 +59,35 @@ def lm_shapes(*, window: int = 0, accum_train: int = 16) -> tuple:
                   dict(seq_len=32768, global_batch=128)),
         ShapeCell("long_500k", "decode",
                   dict(seq_len=524288, global_batch=1), skip=long_skip),
+    )
+
+
+def gnn_shapes(*, d_feat_sm: int, n_classes: int) -> tuple:
+    """The 4 assigned GNN cells (geometry is shape-owned; d_feat per cell)."""
+    return (
+        ShapeCell("full_graph_sm", "graph_train",
+                  dict(n_nodes=2708, n_edges=10556, d_feat=1433,
+                       n_classes=n_classes)),
+        ShapeCell("minibatch_lg", "graph_train",
+                  dict(n_base_nodes=232_965, n_base_edges=114_615_892,
+                       batch_nodes=1024, fanout=(15, 10), d_feat=602,
+                       n_classes=n_classes, sampled=True)),
+        ShapeCell("ogb_products", "graph_train",
+                  dict(n_nodes=2_449_029, n_edges=61_859_140, d_feat=100,
+                       n_classes=n_classes)),
+        ShapeCell("molecule", "graph_train",
+                  dict(batch=128, n_nodes=30, n_edges=64, d_feat=8,
+                       n_classes=n_classes, molecule=True)),
+    )
+
+
+def recsys_shapes() -> tuple:
+    return (
+        ShapeCell("train_batch", "train", dict(batch=65_536)),
+        ShapeCell("serve_p99", "serve", dict(batch=512)),
+        ShapeCell("serve_bulk", "serve", dict(batch=262_144)),
+        ShapeCell("retrieval_cand", "retrieval",
+                  dict(batch=1, n_candidates=1_000_000)),
     )
 
 

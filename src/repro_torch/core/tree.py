@@ -7,6 +7,9 @@ such as Adafactor's factored second moment) is a leaf.
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 
 def leaves(tree):
     """(path, leaf) in ``jax.tree.flatten`` order.  ``path`` is a tuple of
@@ -40,3 +43,51 @@ def tree_map(fn, tree, *rest):
         return [tree_map(fn, t, *(r[i] for r in rest))
                 for i, t in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def _to_tensor(a, shape, dtype, device) -> torch.Tensor:
+    """A copy of the numpy array ``a`` (ml_dtypes bfloat16 included, as
+    ``jax.device_get`` gives it) as a ``dtype`` tensor on ``device``;
+    raises unless its shape is ``shape``."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"a leaf of shape {a.shape} where the config has "
+                         f"{tuple(shape)}")
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype, copy=True)
+
+
+def copy_from_numpy(shapes, tree, dtype, device):
+    """A param tree from ``tree``, a JAX param tree held as numpy arrays:
+    each leaf of ``shapes`` (a tree of shape tuples) becomes a copy of the
+    array at the same path, cast to ``dtype`` on ``device``.  Copies, never
+    views: training updates the params in place, and must not write into
+    the caller's arrays."""
+    out = tree_map(lambda s: None, shapes)
+    for path, shape in leaves(shapes):
+        src = tree
+        for key in path:
+            src = src[key]
+        set_path(out, path, _to_tensor(src, shape, dtype, device))
+    return out
+
+
+def value_and_grad(loss_fn, params, *args, **kwargs):
+    """``jax.value_and_grad(loss_fn, has_aux=True)`` over a param tree:
+    ((loss, metrics), grads) of ``loss_fn(params, *args, **kwargs)``,
+    grads a tree laid out like ``params``.  The gradient is taken with
+    respect to detached aliases of the leaves (no copy, and the caller's
+    tensors are not marked); the loss and metrics come back detached."""
+    alias = tree_map(lambda t: t.detach().requires_grad_(), params)
+    paths, flat = zip(*leaves(alias))
+    with torch.enable_grad():
+        loss, metrics = loss_fn(alias, *args, **kwargs)
+        gs = torch.autograd.grad(loss, flat)
+    grads = tree_map(lambda t: None, params)
+    for path, g in zip(paths, gs):
+        set_path(grads, path, g)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), \
+        grads

@@ -27,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("sorted_lookup", "edge_expand", "dedup_compact", "sort_pairs",
-           "knn_topk", "rmsnorm", "flash_fwd", "flash_bwd")
+           "knn_topk", "rmsnorm", "flash_fwd", "flash_bwd", "segment_spmm",
+           "embedding_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,7 +36,8 @@ LAUNCHES = {"searchsorted_left_ranged": 0, "searchsorted_left": 0,
             "expand": 0,
             "dedup_compact_rows": 0, "sort_rows": 0, "sort_pairs": 0,
             "knn_topk": 0, "rmsnorm_fwd": 0, "flash_fwd": 0,
-            "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+            "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "segment_spmm": 0,
+            "embedding_bag": 0}
 
 _LIBS: dict = {}
 _FUNCS: dict = {}

@@ -1,17 +1,26 @@
-"""The LM training step on one device.
+"""The train and serve steps of the model zoo on one device.
 
-Port of the LM train branch of ``repro/launch/steps.py`` (``pick_opt``,
-the train cell's geometry and ``train_step``).  The JAX cell is a jitted
-step over a device mesh with sharded parameters, optimizer state and
-gradient accumulator; here one device holds them all, so there is no
-sharding, and the step updates the parameters and moments in place.
+Port of the step functions of ``repro/launch/steps.py``: ``pick_opt``; the
+LM train cell's geometry and ``train_step``; the GNN cells' geometry,
+config and ``train_step``; the recsys cells' ``train_step`` and
+``serve_step``.  A JAX cell is a jitted step over a device mesh with
+sharded parameters, optimizer state and gradient accumulator; here one
+device holds them all, so there is no sharding, and a train step updates
+the parameters and moments in place.  Steps take their matmuls with f32
+accumulation, backward included, as XLA does.  (The cells themselves,
+``build_cell`` with its shardings, come with ROADMAP queue 1 item 16.)
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from repro_torch.core.tree import leaves, set_path, tree_map
+from repro_torch.core.precision import f32_accumulation
+from repro_torch.core.tree import leaves, set_path, tree_map, value_and_grad
+from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
+from repro_torch.models.gnn import gcn, sage
 from repro_torch.optim.optimizers import (AdafactorConfig, AdamWConfig,
                                           opt_update)
 
@@ -72,3 +81,87 @@ def lm_train_step(params, opt_state, tokens, targets, cfg, ocfg, *,
         tree_map(lambda g: g.div_(accum), gacc)
     params, opt_state, gnorm = opt_update(params, gacc, opt_state, ocfg)
     return params, opt_state, {"loss": loss, "gnorm": gnorm}
+
+
+# ---------------------------------------------------------------------------
+# GNN and recsys cells
+# ---------------------------------------------------------------------------
+
+GNN_ITEM = "ROADMAP queue 1 item 15d (meshgraphnet, nequip and irreps)"
+
+
+def _update(params, opt_state, loss, grads, ocfg):
+    """``opt_update`` unless the loss is not finite (the trainer's circuit
+    breaker: the update happens in place, so it is decided here)."""
+    if not bool(torch.isfinite(loss)):
+        return params, opt_state, {"loss": loss,
+                                   "gnorm": torch.full_like(loss, torch.nan)}
+    params, opt_state, gnorm = opt_update(params, grads, opt_state, ocfg)
+    return params, opt_state, {"loss": loss, "gnorm": gnorm}
+
+
+def gnn_geometry(cell, reduced: bool = False) -> tuple:
+    """(n_nodes, n_edges, d_feat, n_graphs) of a GNN shape cell, as the JAX
+    cell derives them (``reduced`` cuts them for CPU runs).  A sampled
+    cell's nodes and edges are those of a fanout sample of its batch."""
+    g = cell.geometry
+    if g.get("sampled"):
+        b, (f1, f2) = g["batch_nodes"], g["fanout"]
+        if reduced:
+            b, f1, f2 = 8, 3, 2
+        n = b * (1 + f1 + f1 * f2)
+        e = b * f1 + b * f1 * f2
+        return n, e, (g["d_feat"] if not reduced else 16), 1
+    if g.get("molecule"):
+        bt = g["batch"] if not reduced else 4
+        return (bt * g["n_nodes"], bt * g["n_edges"],
+                g["d_feat"] if not reduced else 8, bt)
+    if reduced:
+        return 64, 256, 16, 1
+    return g["n_nodes"], g["n_edges"], g["d_feat"], 1
+
+
+def gnn_module(cfg):
+    """The model module of a GNN config (gcn or sage)."""
+    mods = {gcn.GCNConfig: gcn, sage.SageConfig: sage}
+    if type(cfg) not in mods:
+        raise NotImplementedError(
+            f"{type(cfg).__name__} is not ported yet: {GNN_ITEM}")
+    return mods[type(cfg)]
+
+
+def gnn_cell_config(base, cell, reduced: bool = False):
+    """The config a GNN cell trains: ``base`` with ``d_in`` the cell's
+    feature width."""
+    gnn_module(base)
+    return dataclasses.replace(base, d_in=gnn_geometry(cell, reduced)[2])
+
+
+@f32_accumulation()
+def gnn_train_step(params, opt_state, batch, cfg, ocfg):
+    """One AdamW step of a GNN on ``batch`` (a GraphBatch), in place;
+    returns (params, opt_state, {"loss", "gnorm"})."""
+    (loss, _), grads = value_and_grad(gnn_module(cfg).loss_fn, params, cfg,
+                                      batch)
+    return _update(params, opt_state, loss, grads, ocfg)
+
+
+def recsys_batch(cell, reduced: bool = False) -> int:
+    """The batch of a recsys shape cell (8 when ``reduced``)."""
+    return cell.geometry["batch"] if not reduced else 8
+
+
+@f32_accumulation()
+def recsys_train_step(params, opt_state, hist, tgt, dense, labels, cfg,
+                      ocfg):
+    """One AdamW step of BST on a batch, in place; returns (params,
+    opt_state, {"loss", "gnorm"}).  The item table's gradient is dense."""
+    (loss, _), grads = value_and_grad(R.loss_fn, params, cfg, hist, tgt,
+                                      dense, labels)
+    return _update(params, opt_state, loss, grads, ocfg)
+
+
+@torch.no_grad()
+def recsys_serve_step(params, hist, tgt, dense, cfg):
+    """BST's scores (logits, (B,) float32) for a batch."""
+    return R.forward(params, cfg, hist, tgt, dense)

@@ -31,18 +31,18 @@ them.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.backend import resolve, resolve_device
 from repro_torch.core.backend import rmsnorm as _rmsnorm
-from repro_torch.core.tree import leaves, tree_map
+from repro_torch.core.precision import f32_accumulation as _f32_accumulation
+from repro_torch.core.tree import copy_from_numpy, leaves
+from repro_torch.core.tree import value_and_grad as tree_value_and_grad
 from repro_torch.core.tree import set_path as _set
 from repro_torch.models.attention import mha
 
@@ -162,31 +162,13 @@ def init_params(cfg: LMConfig, generator: torch.Generator, *, device=None):
     return out
 
 
-def _to_torch(a, shape, dtype, dev) -> torch.Tensor:
-    a = np.ascontiguousarray(np.asarray(a))
-    if tuple(a.shape) != tuple(shape):
-        raise ValueError(f"a leaf of shape {a.shape} where the config has "
-                         f"{tuple(shape)}")
-    if a.dtype.name == "bfloat16":          # ml_dtypes, as jax.device_get
-        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(a)
-    return t.to(device=dev, dtype=dtype, copy=True)
-
-
 def params_from_numpy(cfg: LMConfig, tree, *, device=None) -> dict:
     """The port's params from a JAX param tree held as numpy arrays (what
     ``jax.device_get(init_params(...))`` gives), cast to ``cfg.dtype`` on
     ``device``.  Each leaf is a copy: training updates the params in
     place, and must not write into the caller's arrays."""
-    dev = resolve_device(device)
-    out = _empty_like_tree(cfg)
-    for path, shape in leaves(param_shapes(cfg)):
-        src = tree
-        for key in path:
-            src = src[key]
-        _set(out, path, _to_torch(src, shape, cfg.dtype, dev))
-    return out
+    return copy_from_numpy(param_shapes(cfg), tree, cfg.dtype,
+                           resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -292,21 +274,6 @@ def _layers(params, cfg: LMConfig):
             yield c, j, {n: ts[c] for n, ts in per[j].items()}
 
 
-@contextlib.contextmanager
-def _f32_accumulation():
-    """Matmuls that sum in f32, as XLA does: no TF32 for f32 inputs and no
-    reduced-precision reduction for bf16 ones (PyTorch's default allows
-    it).  The flags are process-wide, so they are restored on the way
-    out."""
-    m = torch.backends.cuda.matmul
-    saved = m.allow_tf32, m.allow_bf16_reduced_precision_reduction
-    m.allow_tf32 = m.allow_bf16_reduced_precision_reduction = False
-    try:
-        yield
-    finally:
-        m.allow_tf32, m.allow_bf16_reduced_precision_reduction = saved
-
-
 @_f32_accumulation()
 def forward_hidden(params, cfg: LMConfig, tokens, positions=None, *,
                    backend=None):
@@ -357,14 +324,8 @@ def value_and_grad(params, cfg: LMConfig, tokens, targets, *,
     caller's tensors are not marked), and the backward, with the blocks'
     recomputation under remat, runs under the forward's f32
     accumulation."""
-    tree = tree_map(lambda t: t.detach().requires_grad_(), params)
-    paths, xs = zip(*leaves(tree))
-    loss, metrics = loss_fn(tree, cfg, tokens, targets, backend=backend)
-    grads = _empty_like_tree(cfg)
-    for path, g in zip(paths, torch.autograd.grad(loss, xs)):
-        _set(grads, path, g)
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), \
-        grads
+    return tree_value_and_grad(loss_fn, params, cfg, tokens, targets,
+                               backend=backend)
 
 
 @_f32_accumulation()

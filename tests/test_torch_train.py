@@ -218,7 +218,7 @@ def test_run_training_lm_and_what_it_refuses(capsys):
     assert all(np.isfinite(v) for v in out.values())
     assert capsys.readouterr().out.count("loss=") == 3
     with pytest.raises(NotImplementedError, match="15d"):
-        ttrain.run_training("gcn-cora", steps=1, device="cpu")
+        ttrain.run_training("meshgraphnet", steps=1, device="cpu")
     with pytest.raises(NotImplementedError, match="15d"):
         ttrain.run_training("h2o-danube-3-4b", steps=1, device="cpu",
                             ckpt_dir="ckpt")
