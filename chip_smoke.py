@@ -9,7 +9,8 @@ Phases, each printed on its own line:
 
   1. device — ``nvidia-smi`` name and power limit;
   2. build — the CUDA kernels under ``src/repro_torch/csrc``, one ``nvcc``
-     each, in parallel;
+     each, in parallel; ptxas's registers and spills (a PTXAS line for the
+     tensor-core flash kernels);
   3. kernel checks — every kernel against its plain PyTorch version on the
      card at edge-case shapes (the int kernels, ``knn_topk`` and f32
      ``embedding_bag`` exactly, floats compared as bits; ``rmsnorm_fwd``,
@@ -41,7 +42,8 @@ Phases, each printed on its own line:
      (float32 ``forward`` on the kernel path against ``backend="ref"``),
      ``lm/decode_consistency`` (decode steps against ``forward``, and a
      ring that wraps), ``lm/prefill_32k`` and ``lm/decode_32k`` in bf16,
-     timed, each checked against ``backend="ref"``;
+     timed, each checked against ``backend="ref"``; the profiled bf16
+     prefill must have run only the tensor-core ``flash_fwd`` kernel;
  9b. lm_train — after phase 9's weights and cache are freed:
      ``lm/train_check_f32`` (4 of the 24 layers in float32 over 4,608
      tokens: ``loss_fn`` and every gradient on the kernel path against
@@ -49,7 +51,8 @@ Phases, each printed on its own line:
      layers in bf16, AdamW with f32 moments, one 4,096-token sequence a
      step: the first step's loss, gradient norm and gradients against
      ``backend="ref"``, then 2 warm-up and 8 timed steps on one batch whose
-     loss must fall);
+     loss must fall; the profiled step must have run only the tensor-core
+     ``flash_fwd`` and ``flash_bwd_dkv`` kernels);
  9c. zoo — after phase 9b's model is freed, gcn-cora, graphsage-reddit
      and bst FULL (float32, AdamW with f32 moments) at their shape cells:
      ``zoo/gcn-cora/full_graph_sm`` (``cora_like(1.0)``) and
@@ -216,14 +219,14 @@ PATH_OF = {"searchsorted_left_ranged": "per_query", "expand": "per_query",
            "flash_bwd_dq": "lm_train", "segment_spmm": "zoo",
            "embedding_bag": "zoo"}
 # float kernels: (rtol, atol) of the kernel against its plain version, per
-# output and input dtype (see _check_rmsnorm, _check_flash,
+# output and input dtype (see _close, _check_rmsnorm, _check_flash,
 # _check_flash_bwd, _check_segment_spmm and _check_embedding_bag)
 FLOAT_TOL = {"rmsnorm_fwd": {"float32": [(1e-5, 1e-5)],
                              "bfloat16": ["ulp"]},
              "flash_fwd": {"float32": [(2e-5, 2e-5), (1e-5, 1e-5)],
-                           "bfloat16": [(2 ** -7, 1e-4), (1e-5, 1e-5)]},
+                           "bfloat16": ["tc", (1e-5, 1e-5)]},
              "flash_bwd_dkv": {"float32": [(2e-4, 2e-4)] * 2,
-                               "bfloat16": ["scale_ulp"] * 2},
+                               "bfloat16": ["tc"] * 2},
              "flash_bwd_dq": {"float32": [(2e-4, 2e-4)],
                               "bfloat16": ["scale_ulp"]},
              "segment_spmm": {"float32": [(5e-5, 5e-5)],
@@ -301,14 +304,35 @@ def phase_device():
 
 
 def phase_build():
+    """Compile every kernel source; print ptxas's register and spill lines,
+    and one PTXAS line with the tensor-core kernels' registers and spill
+    bytes by instantiation."""
+    import re
     from repro_torch.kernels import _cuda
     t0 = time.perf_counter()
     reports = _cuda.build()
     secs = time.perf_counter() - t0
+    tc = {}
     for name, log in reports.items():
+        fn = None
         for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:      # a tensor-core kernel's name and template argument
+                fn = next((f"{k}<{t.group(1)}>" for k, _ in TC_ROUTE.values()
+                           for t in [re.search(k + r"ILi(\d+)E", m.group(1))]
+                           if t), None)
             if "registers" in ln or "spill" in ln:
                 print(f"ptxas {name}: {ln.strip()}", flush=True)
+            if fn:
+                row = tc.setdefault(fn, {})
+                for key, pat in (("registers", r"Used (\d+) registers"),
+                                 ("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads")):
+                    m = re.search(pat, ln)
+                    if m:
+                        row[key] = int(m.group(1))
+    if tc:
+        say("PTXAS", tensor_core_kernels=tc)
     say("BUILD", seconds=secs, built=sorted(reports))
 
 
@@ -407,7 +431,7 @@ def phase_kernel_checks():
         within_tolerance=True, max_abs_err={
             k: {dt: max(e for d, e in v if d == dt) for dt in
                 ("float32", "bfloat16")} for k, v in errs.items()},
-        tolerance=FLOAT_TOL)
+        tolerance=FLOAT_TOL, tc_share_of_tolerance=TC_SHARE)
 
 
 def _check_searchsorted_left(rng, t) -> int:
@@ -531,11 +555,18 @@ def _check_knn_topk(rng, t) -> int:
     return len(cases)
 
 
-def _close(a, b, what, tol) -> float:
+# the largest error of a "tc" check as a share of its tolerance, by the
+# first word of what was checked
+TC_SHARE = {}
+
+
+def _close(a, b, what, tol, bound=None) -> float:
     """``a`` within ``tol`` of ``b`` everywhere (one shape and dtype):
     ``(rtol, atol)``, ``"ulp"`` for at most one bf16 ulp apart (the bit
-    patterns of same-signed values differ by at most 1), or ``"scale_ulp"``
-    for at most one bf16 ulp of ``b``'s largest magnitude apart.  NaN never
+    patterns of same-signed values differ by at most 1), ``"scale_ulp"``
+    for at most one bf16 ulp of ``b``'s largest magnitude apart, or
+    ``"tc"`` for at most ``bound`` (a tensor like ``a``) plus one bf16 ulp
+    of the larger of the two apart (see _flash_fwd_tc_plain).  NaN never
     passes.  Returns the largest absolute difference."""
     import math
     import torch
@@ -550,6 +581,14 @@ def _close(a, b, what, tol) -> float:
     elif tol == "scale_ulp":
         top = float(b.double().abs().max())
         ok = err <= (2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0)
+    elif tol == "tc":
+        big = torch.maximum(a.double().abs(), b.double().abs())
+        ulp = torch.where(big > 0, torch.exp2(torch.floor(torch.log2(
+            big.clamp(min=2.0 ** -126))) - 7), 0.0)
+        ok = err <= bound.double() + ulp
+        key = what.split()[0]
+        TC_SHARE[key] = max(TC_SHARE.get(key, 0.0), float(
+            (err / (bound.double() + ulp).clamp(min=2.0 ** -149)).max()))
     else:
         rtol, atol = tol
         ok = err <= atol + rtol * b.double().abs()
@@ -561,6 +600,185 @@ def _close(a, b, what, tol) -> float:
 
 def _float_tol(name, dtype):
     return FLOAT_TOL[name][str(dtype).replace("torch.", "")]
+
+
+# The tensor-core kernels (bf16 inputs) round one operand of a product to
+# bf16 that the plain versions keep in f32: p before P V (flash_fwd's out,
+# p taken against the running max of the kernel's key step), p and ds
+# before P^T dout and dS^T Q (flash_bwd_dkv's dv and dk).  q, k, v and dout
+# are bf16 already, and every sum is f32.  So each is held against a plain
+# version that rounds the same operands at the same steps
+# (_flash_fwd_tc_plain, _flash_dkv_tc_plain), and what remains between the
+# two is f32 arithmetic done in another order:
+#  * an operand the kernel rounds is computed from the same inputs through
+#    a dot product of D <= 128 exact bf16 products (s, dp), an exp2 and a
+#    few f32 products: its f32 value may differ by DOT_REL of the
+#    magnitudes it is made of (|q| |k|, |dout| |v|, the exponent's terms).
+#    Two f32 sums of n terms in other orders differ by about
+#    2 sqrt(n) 2**-24 of the terms' magnitudes (independent roundings):
+#    2**-19.5 at n = 128, so DOT_REL = 2**-17 leaves a factor 5.  Where the
+#    value lies that close to a bf16 midpoint the two may round it to
+#    neighbouring values; the bound adds |r(x + eps) - r(x - eps)| for each
+#    term (r: round to bf16), 0 where no midpoint is that close;
+#  * the f32 sums of the products (P V over the visited keys, the dK/dV
+#    sums over G heads and every row, O's rescaling chain) differ by
+#    SUM_REL of their terms' magnitudes: 2 sqrt(n) 2**-24 is 2**-15.5 at
+#    n = 32,768, so SUM_REL = 2**-14;
+#  * both round the f32 result to bf16 once: one ulp of the larger of the
+#    two (_close's "tc").
+# The bound stays about one ulp of the result: a key step left out moves
+# out, dk or dv by many (tests/test_torch_flash_tc.py shows it at a window
+# of 4,096 keys).
+DOT_REL = 2.0 ** -17
+SUM_REL = 2.0 ** -14
+LOG2E = 1.4426950408889634
+TC_ROWS = 512           # query rows the rounding-matched versions take at once
+
+
+def _spread(x, eps):
+    """How far rounding x to bf16 can move when x moves by up to eps."""
+    import torch
+    return (x + eps).to(torch.bfloat16).float() - \
+        (x - eps).to(torch.bfloat16).float()
+
+
+def _flash_fwd_tc_plain(q, k, v, *, causal, window, scale, q_offset=0):
+    """flash_fwd_tc_kernel's arithmetic in plain torch, TC_ROWS rows at a
+    time over the keys their q blocks visit: x = s scale log2(e), the
+    running max m of each row over the kernel's key steps (a 64-key tile in
+    one step where its warp's 32 rows see every key of it and D <= 120,
+    else in two 32-key steps; a step's p is taken against the max through
+    the step's end), p = exp2(x - m) in f32, l summed from the f32 p and
+    O += bf16(p) V, both rescaled to the row's final max.  Returns (out,
+    lse, bound): bound per element of out, see DOT_REL (lse is held to
+    (1e-5, 1e-5) as for the f32 kernel: l is summed from the f32 p)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import NEG_INF, \
+        attention_mask
+    BHq, Sq, D = q.shape
+    BHkv, Sk, _ = k.shape
+    G = BHq // BHkv
+    c = scale * LOG2E
+    BK, H, W = fk.TC_BK, fk.TC_BK // 2, fk.TC_WARP_ROWS
+    out = torch.zeros_like(q)
+    lse = torch.full((BHq, Sq), NEG_INF, device=q.device)
+    bound = torch.zeros(q.shape, device=q.device)
+    og, lg, bg = (t.view(BHkv, G, Sq, *t.shape[2:]) for t in (out, lse,
+                                                              bound))
+    qg = q.view(BHkv, G, Sq, D)
+    for a in range(0, Sq, TC_ROWS):
+        n = min(TC_ROWS, Sq - a)
+        tiles = fk.kv_tiles(a, n, Sk, causal=causal, window=window,
+                            q_offset=q_offset, bk=BK)
+        if not len(tiles):
+            continue
+        k0, T = tiles.start * BK, len(tiles)
+        nk = min(Sk, tiles.stop * BK) - k0
+        live = torch.zeros((-(-n // W) * W, T * BK), dtype=torch.bool,
+                           device=q.device)
+        live[:n, :nk] = attention_mask(n, nk, causal=causal, window=window,
+                                       q_offset=q_offset + a - k0,
+                                       device=q.device)
+        # the warps' steps: a tile split in two unless its warp's rows see
+        # every key of it and D <= 120 (the kernel's kFull and KF)
+        full = live.view(-1, W, T, BK).all(3).all(1)
+        split = (~full | (D > 120)).repeat_interleave(W, 0)[:n]
+        live = live[:n]
+        qa = qg[:, :, a:a + n].float()
+        kk = F.pad(k[:, None, k0:k0 + nk].float(), (0, 0, 0, T * BK - nk))
+        vv = F.pad(v[:, None, k0:k0 + nk].float(), (0, 0, 0, T * BK - nk))
+        x = torch.where(live, torch.matmul(qa, kk.transpose(-1, -2)) * c,
+                        NEG_INF)
+        cm = torch.cummax(x.unflatten(-1, (2 * T, H)).amax(-1), -1).values
+        m = torch.stack((torch.where(split, cm[..., 0::2], cm[..., 1::2]),
+                         cm[..., 1::2]), -1).flatten(-2)
+        m = m.repeat_interleave(H, -1)
+        mf = cm[..., -1:]
+        p = torch.where(live, torch.exp2(x - m), 0.0)
+        f = torch.exp2(m - mf)
+        pr = p.to(torch.bfloat16).float()
+        l = (p * f).sum(-1, keepdim=True)
+        lc = l.clamp(min=1e-30)
+        o = torch.matmul(pr * f, vv) / lc
+        og[:, :, a:a + n] = o.to(q.dtype)
+        lg[:, :, a:a + n] = (torch.where(l > 0, mf / LOG2E, NEG_INF)
+                             + torch.log(lc))[..., 0]
+        # the bound: exponent x - m from |q| |k| and the terms' sizes
+        amag = torch.where(live, torch.matmul(qa.abs(),
+                                              kk.abs().transpose(-1, -2)), 0)
+        arg = DOT_REL * (c * (amag + amag.amax(-1, keepdim=True))
+                         + x.abs() + m.abs() + 1)
+        eps = torch.where(live, p * torch.expm1(arg), 0.0)
+        w = (_spread(p, eps) + SUM_REL * pr) * f
+        bg[:, :, a:a + n] = torch.matmul(w, vv.abs()) / lc + o.abs() * (
+            (eps * f).sum(-1, keepdim=True) / lc + SUM_REL)
+        del x, p, f, pr, m, amag, arg, eps, w
+    return out, lse, bound
+
+
+def _flash_dkv_tc_plain(q, k, v, do, lse, delta, *, causal, window, scale,
+                        q_offset=0):
+    """flash_bwd_dkv_tc_kernel's arithmetic in plain torch, TC_ROWS rows at
+    a time with the G q heads of a kv head stacked: p = exp2(s scale
+    log2(e) - lse log2(e)) and ds = p (dp - delta) scale in f32, dv +=
+    bf16(p)^T dout and dk += bf16(ds)^T q.  Returns (dk, dv, bound of dk,
+    bound of dv), see DOT_REL."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    BHq, Sq, D = q.shape
+    BHkv, Sk, _ = k.shape
+    G = BHq // BHkv
+    c = scale * LOG2E
+    kf, vf = k.float()[:, None], v.float()[:, None]
+    qg, og = q.view(BHkv, G, Sq, D), do.view(BHkv, G, Sq, D)
+    lg, dg = lse.view(BHkv, G, Sq, 1), delta.view(BHkv, G, Sq, 1)
+    dk, dv, bk, bv = (torch.zeros((BHkv, Sk, D), device=q.device)
+                      for _ in range(4))
+    for a in range(0, Sq, TC_ROWS):
+        b = min(Sq, a + TC_ROWS)
+        qa, oa = qg[:, :, a:b].float(), og[:, :, a:b].float()
+        la, da = lg[:, :, a:b] * LOG2E, dg[:, :, a:b]
+        live = attention_mask(b - a, Sk, causal=causal, window=window,
+                              q_offset=q_offset + a, device=q.device)
+        sc = torch.matmul(qa, kf.transpose(-1, -2)) * c
+        p = torch.where(live, torch.exp2(sc - la), 0.0)
+        dp = torch.matmul(oa, vf.transpose(-1, -2))
+        ds = p * (dp - da) * scale
+        pr, dsr = (t.to(torch.bfloat16).float() for t in (p, ds))
+        dv += torch.matmul(pr.transpose(-1, -2), oa).sum(1)
+        dk += torch.matmul(dsr.transpose(-1, -2), qa).sum(1)
+        # the bound: p's exponent from |q| |k| and its terms' sizes, ds's
+        # dp - delta from |dout| |v| and |delta|
+        arg = DOT_REL * (c * torch.matmul(qa.abs(), kf.abs().transpose(
+            -1, -2)) + sc.abs() + la.abs() + 1)
+        ep = torch.where(live, p * torch.expm1(arg), 0.0)
+        eds = ep * (dp - da).abs() * scale + DOT_REL * (
+            p * scale * (torch.matmul(oa.abs(), vf.abs().transpose(-1, -2))
+                         + da.abs()) + ds.abs())
+        bv += torch.matmul((_spread(p, ep) + SUM_REL * pr).transpose(-1, -2),
+                           oa.abs()).sum(1)
+        bk += torch.matmul((_spread(ds, eds) + SUM_REL * dsr.abs())
+                           .transpose(-1, -2), qa.abs()).sum(1)
+        del sc, p, dp, ds, pr, dsr, arg, ep, eds
+    return dk.to(k.dtype), dv.to(v.dtype), bk, bv
+
+
+def _reference(name, plain, args, kw):
+    """(outputs, bound of each) a kernel is held to on ``args``: the plain
+    version's outputs with no bounds, or for the tensor-core flash kernels
+    (bf16 inputs) the rounding-matched plain version's with its bounds."""
+    import torch
+    bf16 = args[0].dtype == torch.bfloat16
+    if name == "flash_fwd" and bf16:
+        out, lse, bound = _flash_fwd_tc_plain(*args, **kw)
+        return [out, lse], [bound, None]
+    if name == "flash_bwd_dkv" and bf16:
+        dk, dv, bk, bv = _flash_dkv_tc_plain(*args, **kw)
+        return [dk, dv], [bk, bv]
+    ref = list(_tensors([plain(*args, **kw)]))
+    return ref, [None] * len(ref)
 
 
 def _check_rmsnorm(dev):
@@ -603,16 +821,21 @@ FLASH_CASES = (
     (2, 1, 4, 1, 4097, 120, True, 4096, 4096),    # one decode row
     (1, 2, 1, 17, 17, 32, True, 0, 0),            # Sq < one block
     (1, 1, 4, 10, 20, 64, False, 50, 100),        # rows with no live key
+    (1, 2, 5, 384, 384, 128, True, 256, 0),       # qwen1.5-32b: D 128, G 5
+    (1, 2, 4, 1000, 1000, 120, True, 200, 0),     # window edge mid-tile
+    (1, 1, 4, 4097, 4097, 120, True, 4096, 0),    # one row past 32 q blocks
+    (1, 2, 4, 100, 4196, 120, True, 4096, 4096),  # q_offset, Sq < a q block
+    (1, 2, 2, 300, 300, 17, True, 128, 0),        # odd D: element loads
 )
 
 
 def _check_flash(dev):
     """flash_fwd against its plain version, out and lse: f32 within 2e-5
-    and 1e-5 (the JAX kernel tests' tolerances); bf16 out within one bf16
-    ulp (rtol 2**-7: both round once an f32 value that differs only in the
-    last bits) plus atol 1e-4 for outputs near 0, where the f32 sums'
-    rounding exceeds an ulp, and lse within 1e-5 (computed in f32 from the
-    same inputs).  Returns [(dtype, max abs err)]."""
+    and 1e-5 (the JAX kernel tests' tolerances); bf16 (the tensor-core
+    kernel) against the plain version that rounds p where it does, out
+    within one bf16 ulp plus its bound (see DOT_REL) and lse within 1e-5
+    (the denominator is summed from the f32 p).  Returns [(dtype, max abs
+    err)]."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fk
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -620,18 +843,20 @@ def _check_flash(dev):
     for dt in (torch.float32, torch.bfloat16):
         tol = _float_tol("flash_fwd", dt)
         for B, Hkv, G, Sq, Sk, D, causal, window, qo in FLASH_CASES:
-            if Sq > 4096 and dt == torch.float32:
+            if Sq == 32768 and dt == torch.float32:
                 continue                      # the main path runs bf16
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
                        for shape in ((B * Hkv * G, Sq, D), (B * Hkv, Sk, D),
                                      (B * Hkv, Sk, D)))
             kw = dict(causal=causal, window=window, scale=D ** -0.5,
                       q_offset=qo)
-            got, want = fk.flash_fwd(q, k, v, **kw), \
-                fk.flash_fwd_plain(q, k, v, **kw)
+            got = fk.flash_fwd(q, k, v, **kw)
+            want, bounds = _reference("flash_fwd", fk.flash_fwd_plain,
+                                      (q, k, v), kw)
             what = f"flash_fwd {dt} {(B, Hkv, G, Sq, Sk, D, causal, window, qo)}"
-            err = max(_close(got[0], want[0], what + " out", tol[0]),
-                      _close(got[1], want[1], what + " lse", tol[1]))
+            err = max(_close(g, w, f"{what} {name}", t, bd)
+                      for g, w, name, t, bd in zip(
+                          got, want, ("out", "lse"), tol, bounds))
             out.append((str(dt).replace("torch.", ""), err))
     return out
 
@@ -648,6 +873,9 @@ FLASH_BWD_CASES = (
     (2, 1, 65, 63, 64, False, 0, 0),              # bidirectional, Sq > Sk
     (1, 4, 63, 4097, 17, True, 128, 4034),        # q_offset, window
     (1, 4, 10, 20, 17, False, 8, 20),             # rows 7-9 see no key
+    (2, 5, 384, 384, 128, True, 256, 0),          # qwen1.5-32b: D 128, G 5
+    (1, 4, 1000, 1000, 120, True, 200, 0),        # window edge mid-tile
+    (1, 4, 40, 4136, 120, True, 4096, 4096),      # q_offset, Sq < a q tile
 )
 
 
@@ -655,10 +883,13 @@ def _check_flash_bwd(dev):
     """The two flash_bwd kernels against their plain version, dq, dk and
     dv, from the plain forward's lse and delta = sum(out * dout): f32
     within 2e-4 (the JAX kernel tests' tolerance for the gradients); bf16
-    within one bf16 ulp of each output's largest magnitude (both sum the
-    same bf16 inputs in f32 in another order, then round once: two values
-    a few f32 ulps apart round at most one bf16 ulp apart, and no element
-    is larger than the largest).  Returns [(dtype, max abs err)]."""
+    dq (CUDA cores) within one bf16 ulp of its largest magnitude (both sum
+    the same bf16 inputs in f32 in another order, then round once: two
+    values a few f32 ulps apart round at most one bf16 ulp apart, and no
+    element is larger than the largest); bf16 dk and dv (tensor cores)
+    against the plain version that rounds p and ds where the kernel does,
+    within one bf16 ulp plus their bounds (see DOT_REL).  Returns [(dtype,
+    max abs err)]."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fk
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -675,14 +906,19 @@ def _check_flash_bwd(dev):
                       q_offset=qo)
             o, lse = fk.flash_fwd_plain(q, k, v, **kw)
             delta = torch.sum(o.float() * do.float(), dim=-1)
-            got = fk.flash_bwd(q, k, v, do, lse, delta, **kw)
-            want = fk.flash_bwd_plain(q, k, v, do, lse, delta, **kw)
+            args = (q, k, v, do, lse, delta)
+            got = fk.flash_bwd(*args, **kw)
+            want, bounds = _reference("flash_bwd_dq", fk.flash_bwd_dq_plain,
+                                      args, kw)
+            dkv, dkv_bounds = _reference(
+                "flash_bwd_dkv", fk.flash_bwd_dkv_plain, args, kw)
             what = (f"flash_bwd {dt} "
                     f"{(BHkv, G, Sq, Sk, D, causal, window, qo)}")
-            err = max(_close(g, w, f"{what} {name}", tol)
-                      for g, w, name, tol in zip(
-                          got, want, ("dq", "dk", "dv"),
-                          (tol_dq, tol_dkv, tol_dkv)))
+            err = max(_close(g, w, f"{what} {name}", tol, bd)
+                      for g, w, name, tol, bd in zip(
+                          got, want + dkv, ("dq", "dk", "dv"),
+                          (tol_dq, tol_dkv, tol_dkv),
+                          bounds + dkv_bounds))
             out.append((str(dt).replace("torch.", ""), err))
     return out
 
@@ -1332,8 +1568,14 @@ OWN_KERNELS = ("searchsorted_left_ranged_kernel", "searchsorted_left_kernel",
                "dedup_compact_rows_kernel", "sort_rows_kernel",
                "chunk_sort_kernel", "global_step_kernel",
                "chunk_merge_kernel", "knn_chunk_kernel", "knn_merge_kernel",
-               "rmsnorm_fwd_kernel", "flash_fwd_kernel",
-               "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+               "rmsnorm_fwd_kernel", "flash_fwd_kernel", "flash_fwd_tc_kernel",
+               "flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel",
+               "flash_bwd_dq_kernel")
+# the bf16 LM paths' flash kernels, by route: (tensor-core kernel, CUDA-core
+# kernel it must not run), per wrapper
+TC_ROUTE = {"flash_fwd": ("flash_fwd_tc_kernel", "flash_fwd_kernel"),
+            "flash_bwd_dkv": ("flash_bwd_dkv_tc_kernel",
+                              "flash_bwd_dkv_kernel")}
 
 
 def phase_profile(db, cell, qs, p50_s, **kw):
@@ -1347,7 +1589,7 @@ def _profile(cell, fn, p50_s, **extra):
     (profiler): the share of it in the port's own kernels, and the busy
     time against the profiled call's wall time and the unprofiled p50
     latency.  The whole table goes to ``profile_<cell>.txt`` in the output
-    directory."""
+    directory.  Returns {kernel name: launches} of the device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1376,6 +1618,23 @@ def _profile(cell, fn, p50_s, **extra):
         busy_over_p50=busy_us / 1e6 / p50_s,
         top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
              for e in top], **extra)
+    return {e.key: e.count for e in kern}
+
+
+def _check_tc_route(cell, counts, launched: dict):
+    """The profiled call of a bf16 LM cell ran each flash wrapper's
+    tensor-core kernel once a wrapper launch (``launched``: {wrapper:
+    launches a call, as ``_lm_launch_check`` holds them}) and never its
+    CUDA-core kernel."""
+    import re
+    for name, n in launched.items():
+        tc, cores = TC_ROUTE[name]
+        got = {k: sum(c for key, c in counts.items()
+                      if re.search(rf"\b{k}\b", key)) for k in (tc, cores)}
+        check(got[tc] == n and got[cores] == 0,
+              f"{cell}: {name} launched {n} times, the profile shows "
+              f"{got[tc]} {tc} and {got[cores]} {cores}")
+    say("ROUTE", cell=cell, tensor_core_launches=launched)
 
 
 # ---------------------------------------------------------------------------
@@ -1555,7 +1814,10 @@ def phase_lm_prefill(dev, cfg, p, sizes, launches, rec):
         rel_err_vs_ref=err, tolerance=LM_BF16_TOL,
         argmax_ties_swapped=swapped)
     if dev.type == "cuda":
-        _profile("lm_prefill_32k", lambda: T.prefill(p, cfg, toks), p50)
+        counts = _profile("lm_prefill_32k", lambda: T.prefill(p, cfg, toks),
+                          p50)
+        _check_tc_route("lm/prefill_32k", counts,
+                        {"flash_fwd": cfg.n_layers})
 
 
 def phase_lm_decode(dev, cfg, p, sizes, launches):
@@ -1840,7 +2102,9 @@ def phase_lm_train(dev, cfg, sizes, launches, rec):
                                        gnorm=TRAIN_GNORM_TOL,
                                        min_cosine=TRAIN_MIN_COSINE)))
     if dev.type == "cuda":
-        _profile("lm_train_4k", step, p50)
+        counts = _profile("lm_train_4k", step, p50)
+        _check_tc_route("lm/train_4k", counts,
+                        {"flash_fwd": 2 * L, "flash_bwd_dkv": L})
     del p, state
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2470,7 +2734,7 @@ def _library_call(name, args, kw):
         lib = "F.rms_norm", lambda: torch.nn.functional.rms_norm(
             x, (x.shape[-1],), scale, kw.get("eps", 1e-6))
     if name == "flash_fwd":
-        lib = _sdpa_call(args, kw)
+        return _sdpa_call(args, kw)
     return (lib[0], _events_ms(lib[1])) if lib else None
 
 
@@ -2520,16 +2784,48 @@ def _bag_library(name, args, kw):
     return f"{label} (rel err {err} to the kernel)", ms
 
 
+def _sdpa_setups(k4, v4, G):
+    """(label, backend, k, v, kwargs) of each way one SDPA call can take
+    these inputs: each fused backend that this PyTorch has (flash,
+    memory-efficient, cuDNN; the math backend would hold every score),
+    with ``enable_gqa`` and with k and v repeated over the group before the
+    call."""
+    from torch.nn.attention import SDPBackend
+    kr, vr = (t.repeat_interleave(G, dim=1) for t in (k4, v4))
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+        if not hasattr(SDPBackend, name):
+            continue
+        backend = getattr(SDPBackend, name)
+        label = name.split("_")[0].lower()
+        if G > 1:
+            yield f"{label} enable_gqa", backend, k4, v4, {"enable_gqa": True}
+        yield f"{label}, k and v repeated", backend, kr, vr, {}
+
+
+def _fastest(timed):
+    """The (label, ms) of least ms among ``(label, fn)`` pairs, timing each
+    fn that runs (a setup its backend refuses raises and is passed over),
+    or None."""
+    import warnings
+    best = None
+    for label, fn in timed:
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                ms = fn()
+        except (RuntimeError, TypeError):
+            continue
+        if best is None or ms < best[1]:
+            best = (label, ms)
+    return best
+
+
 def _sdpa_call(args, kw, rows=None):
-    """F.scaled_dot_product_attention on flash_fwd's inputs (the first
-    ``rows`` positions, with ``is_causal`` there when the window covers
-    them; else the boolean mask), on a fused backend (flash or
-    memory-efficient: the math backend would hold every score), with
-    ``enable_gqa``, or with k and v repeated over the group where the
-    backend does not take it."""
-    import torch
+    """(label, ms) of F.scaled_dot_product_attention on flash_fwd's inputs
+    (the first ``rows`` positions, with ``is_causal`` there when the window
+    covers them; else the boolean mask), the fastest of _sdpa_setups."""
     import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention import sdpa_kernel
     from repro_torch.kernels.flash_attention.ref import attention_mask
     q, k, v = args
     BHkv, Sk, D = k.shape
@@ -2543,65 +2839,64 @@ def _sdpa_call(args, kw, rows=None):
     mask = None if causal_only else attention_mask(
         q.shape[1], Sk, causal=kw["causal"], window=kw["window"],
         q_offset=kw["q_offset"], device=q.device)
-    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
 
-    def call(kk, vv, **gqa):
-        with sdpa_kernel(backends):
-            return F.scaled_dot_product_attention(
-                q4, kk, vv, attn_mask=mask, is_causal=bool(causal_only),
-                scale=kw["scale"], **gqa)
-    try:
-        call(k4, v4, enable_gqa=True)
-        label = "sdpa enable_gqa"
-        fn = lambda: call(k4, v4, enable_gqa=True)       # noqa: E731
-    except RuntimeError:
-        kr, vr = (t.repeat_interleave(G, dim=1) for t in (k4, v4))
-        label = "sdpa, k and v repeated"
-        fn = lambda: call(kr, vr)                       # noqa: E731
-    return (f"{label}, {'is_causal' if causal_only else 'bool mask'}, "
-            f"{q.shape[1]} rows"), fn
+    def timer(backend, kk, vv, gqa):
+        def call():
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(
+                    q4, kk, vv, attn_mask=mask, is_causal=bool(causal_only),
+                    scale=kw["scale"], **gqa)
+        return lambda: _events_ms(call)
+    best = _fastest((label, timer(*rest))
+                    for label, *rest in _sdpa_setups(k4, v4, G))
+    if best is None:
+        return None
+    return (f"sdpa {best[0]}, {'is_causal' if causal_only else 'bool mask'}"
+            f", {q.shape[1]} rows"), best[1]
 
 
 def _sdpa_bwd(args, kw):
     """(label, ms) of the backward of F.scaled_dot_product_attention on
-    flash_bwd's inputs (fused backends, ``is_causal``, ``enable_gqa`` or k
-    and v repeated over the group), timed as forward plus backward minus
-    forward; None unless the mask is the plain causal one (the window
-    covers every position and no offset), where SDPA computes the same
-    function."""
+    flash_bwd's inputs (``is_causal``), the fastest of _sdpa_setups (with
+    k and v repeated, the gradients are the repeated tensors'), timed as
+    forward plus backward minus forward; None unless the mask is the plain
+    causal one (the window covers every position and no offset), where
+    SDPA computes the same function."""
     import torch
     import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention import sdpa_kernel
     q, k, v, do = args[:4]
     BHq, Sq, D = q.shape
     BHkv, Sk, _ = k.shape
     if not (kw["causal"] and kw["q_offset"] == 0 and Sq == Sk
             and (kw["window"] <= 0 or kw["window"] >= Sk)):
         return None
-    q4, k4, v4 = (t.detach().reshape(1, -1, t.shape[1], D).requires_grad_()
+    q4, k4, v4 = (t.detach().reshape(1, -1, t.shape[1], D)
                   for t in (q, k, v))
     do4 = do.reshape(1, BHq, Sq, D)
-    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+    q4 = q4.requires_grad_()
 
-    def fwd(kk, vv, **gqa):
-        with sdpa_kernel(backends):
-            return F.scaled_dot_product_attention(
-                q4, kk, vv, is_causal=True, scale=kw["scale"], **gqa)
-    try:
-        fwd(k4, v4, enable_gqa=True)
-        label, f = "sdpa enable_gqa", lambda: fwd(k4, v4, enable_gqa=True)
-    except RuntimeError:
-        G = BHq // BHkv
-        label = "sdpa, k and v repeated"
-        f = lambda: fwd(*(t.repeat_interleave(G, dim=1)   # noqa: E731
-                          for t in (k4, v4)))
-    with torch.enable_grad():
-        f_ms = _events_ms(f)
-        fb_ms = _events_ms(lambda: torch.autograd.grad(f(), (q4, k4, v4),
-                                                       do4))
-    return (f"{label}, is_causal, {Sq} rows: backward (forward + backward "
-            f"{fb_ms} ms minus forward {f_ms} ms), dq, dk and dv together"), \
-        fb_ms - f_ms
+    def timer(backend, kk, vv, gqa):
+        kk, vv = (t.detach().requires_grad_() for t in (kk, vv))
+
+        def fwd():
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(
+                    q4, kk, vv, is_causal=True, scale=kw["scale"], **gqa)
+
+        def ms():
+            with torch.enable_grad():
+                f_ms = _events_ms(fwd)
+                fb_ms = _events_ms(lambda: torch.autograd.grad(
+                    fwd(), (q4, kk, vv), do4))
+            return fb_ms - f_ms
+        return ms
+    best = _fastest((label, timer(*rest))
+                    for label, *rest in _sdpa_setups(k4, v4, BHq // BHkv))
+    if best is None:
+        return None
+    return (f"sdpa {best[0]}, is_causal, {Sq} rows: backward (forward + "
+            f"backward minus forward), dq, dk and dv together"), best[1]
 
 
 def phase_kernel_report(launches, best):
@@ -2656,19 +2951,24 @@ def phase_kernel_report(launches, best):
         _, args, kw = best[name]
         kern, plain = fns[name]
         out = kern(*args, **kw)
-        ref = plain(*args, **kw)
+        ref_t, bounds = _reference(name, plain, args, kw)
+        TC_SHARE.clear()
         torch.cuda.synchronize()
-        out_t, ref_t = list(_tensors([out])), list(_tensors([ref]))
+        out_t = list(_tensors([out]))
+        check(len(out_t) == len(ref_t), f"{name}: {len(out_t)} outputs, "
+              f"{len(ref_t)} in its reference")
         if name in FLOAT_TOL:
             tols = _float_tol(name, out_t[0].dtype)
-            err = max(_close(o, r, f"{name} at main-path inputs", tol)
-                      for o, r, tol in zip(out_t, ref_t, tols))
+            check(len(tols) == len(out_t), f"{name}: {len(out_t)} outputs, "
+                  f"{len(tols)} tolerances")
+            err = max(_close(o, r, f"{name} at main-path inputs", tol, bd)
+                      for o, r, tol, bd in zip(out_t, ref_t, tols, bounds))
         else:
             _exact(_bits(out_t), _bits(ref_t), f"{name} at main-path inputs")
             err = max(float((o.double() - r.double()).abs().nan_to_num(0)
                             .max()) if o.numel() else 0.0
                       for o, r in zip(out_t, ref_t))
-        del out, ref, out_t, ref_t
+        del out, out_t, ref_t, bounds
         lib = _library_call(name, args, kw)
         bound_ms, bound_by = _bound(name, args, kw)
         shapes = [tuple(a.shape) for a in _tensors(args)][:3]
@@ -2684,14 +2984,16 @@ def phase_kernel_report(launches, best):
             library=lib[0] if lib else None,
             device_ms=_device_ms(lambda: kern(*args, **kw)),
             shapes=shapes, dtype=str(args[0].dtype))
+        if name in TC_SHARE:
+            row["tc_share_of_tolerance"] = TC_SHARE[name]
         if name == "flash_fwd":
             # the window mask equals the causal one over the first 4096
             # positions: the fused causal attention's time there
             S0 = min(4096, args[0].shape[1])
             part = [t[:, :S0].contiguous() for t in args]
-            label, fn = _sdpa_call(part, kw, rows=S0)
+            label, lib_ms = _sdpa_call(part, kw, rows=S0) or (None, None)
             row.update(ms_causal_4096=_events_ms(lambda: kern(*part, **kw)),
-                       library_causal_4096_ms=_events_ms(fn),
+                       library_causal_4096_ms=lib_ms,
                        library_causal_4096=label)
         rows.append(row)
         torch.cuda.empty_cache()

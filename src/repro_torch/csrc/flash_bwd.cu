@@ -1,5 +1,6 @@
-// FlashAttention-2 backward for Hopper (sm_90a), float32 arithmetic on the
-// CUDA cores: two kernels, dK/dV and dQ.
+// FlashAttention-2 backward for Hopper (sm_90a): two kernels, dK/dV and dQ.
+// dK/dV runs bf16 inputs on the tensor cores (mma.sync) and float32 inputs
+// on the CUDA cores; dQ runs both dtypes on the CUDA cores.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py::flash_bwd, its two
 // Pallas TPU kernels (_dkv_kernel, grid (BHkv, Tk, G, Tq), and _dq_kernel,
@@ -19,26 +20,42 @@
 // What bounds it: operations.  At train_4k of h2o-danube-3-4b (S 4096, 32 q
 // heads, D 120, window 4096) the dK/dV kernel does 8*D flops on each of
 // 8.39 M live pairs a head and the dQ kernel 6*D, 2.6e11 and 1.9e11 flops a
-// layer, against ~0.1 GB of inputs and outputs.  This first version runs
-// them as float32 FMAs on the CUDA cores (a later one moves them to the
-// tensor cores, as for flash_fwd).  The design:
-//   * dK/dV: grid (B*Hkv, ceil(Sk/64)), 256 threads a block.  A block keeps
-//     its 64-key k and v tiles in shared memory and their dk and dv in
+// layer, against ~0.1 GB of inputs and outputs: 0.26 and 0.20 ms at the
+// bf16 tensor-core rate.  The designs:
+//   * dK/dV, both dtypes: grid (B*Hkv, ceil(Sk/64)).  A block keeps its
+//     64-key k and v tiles in shared memory and their dk and dv in
 //     registers, loops over the G q heads of its kv head and, for each, over
 //     only the q tiles that hold a row the mask lets see one of its keys
 //     (q_tiles in kernel.py mirrors these bounds), and writes dk and dv
 //     once.  No atomics: a result does not depend on the order in which
 //     blocks run, and a second run gives the same bits.  Under a causal mask
 //     the first key tiles see the most rows, and they are scheduled first.
-//   * dQ: grid (B*Hq, ceil(Sq/64)): a block keeps its q and dout tiles and
-//     the rows' lse and delta on chip and loops over the kv tiles that
-//     kv_tiles gives (flash_fwd's bounds); ds goes to shared memory over the
-//     v tile once dp is formed.  Blocks take q tiles from the last down, so
-//     the heaviest rows of a causal mask are scheduled first.
-//   * each thread computes a 4 x 4 register tile of the 64 x 64 s and dp
-//     (rows ty + 16i, keys tx + 16j) and accumulates 4 rows x ceil(D/16)
-//     columns; tiles are f32 in shared memory with the rows padded to an odd
-//     stride, so that the 16 key lanes of a warp hit 16 banks;
+//   * dK/dV, bf16 (flash_bwd_dkv_tc_kernel): 4 warps, 16 keys a warp, in
+//     the key-row orientation of the FlashAttention-2 backward.  Per q tile
+//     of 64 rows, S^T = K Q^T and dP^T = V dout^T on the tensor cores (k and
+//     v as A fragments, q and dout as B fragments), p and ds from them in
+//     registers (exp2, scale*log2(e) folded in, lse and delta of the tile's
+//     rows from shared memory), then dV += P^T dout and dK += dS^T Q with
+//     P^T and dS^T, rounded to bf16, as A fragments straight from the S^T
+//     and dP^T accumulators (flash_mma.cuh): only those two operands are
+//     rounded.  q, dout, lse and delta stream through two stages of
+//     cp.async, so the next q tile arrives while this one is multiplied;
+//     ~103 KB of shared memory and at most 255 registers a thread (no
+//     spills, ptxas -v) let two blocks (8 warps) share an SM.  The mask is
+//     tested only on the tiles that need it (tile_class: diagonal tiles,
+//     the window's edge, ragged tails); a warp skips the q tiles that see
+//     none of its keys.
+//   * dK/dV, float32 (flash_bwd_dkv_kernel): each thread computes a 4 x 4
+//     register tile of the 64 x 64 s and dp (rows ty + 16i, keys tx + 16j)
+//     and accumulates 4 rows x ceil(D/16) columns; p and ds go through
+//     shared memory; tiles are f32 in shared memory with the rows padded to
+//     an odd stride, so that the 16 key lanes of a warp hit 16 banks.
+//   * dQ, both dtypes (CUDA cores, as dK/dV float32): grid (B*Hq,
+//     ceil(Sq/64)): a block keeps its q and dout tiles and the rows' lse and
+//     delta on chip and loops over the kv tiles that kv_tiles gives
+//     (flash_fwd's bounds); ds goes to shared memory over the v tile once
+//     dp is formed.  Blocks take q tiles from the last down, so the
+//     heaviest rows of a causal mask are scheduled first.
 //   * ragged tails: rows past Sq and keys past Sk are masked (their p is 0)
 //     and not written, so any Sq, Sk >= 1 work (Pallas needs multiples of
 //     the block).  A row with no live key has p = 0 everywhere and
@@ -46,6 +63,8 @@
 // D may be at most 128 (kDMax).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -379,9 +398,263 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dK/dV: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+namespace fm = flash_mma;
+
+constexpr int kTcBK = 64;                     // keys a block, 16 a warp
+constexpr int kTcBQ = 64;                     // q rows a tile
+constexpr int kTcThreads = 32 * kTcBK / 16;   // 128
+constexpr int kTcQN = kTcBQ / 8;              // n8 tiles of q rows
+
+// shared memory of a block in bytes, for a row stride of ST bf16: the k and
+// v tiles, two stages of (q tile, dout tile), two stages of (lse, delta)
+constexpr int dkv_tc_smem_bytes(int ST) {
+  return 2 * (2 * kTcBK + 4 * kTcBQ) * ST + 4 * 4 * kTcBQ;
+}
+
+template <int NT>                             // n8 tiles of the head dim
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_bwd_dkv_tc_kernel(const fm::bf16* __restrict__ q,
+                        const fm::bf16* __restrict__ k,
+                        const fm::bf16* __restrict__ v,
+                        const fm::bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        fm::bf16* __restrict__ dk, fm::bf16* __restrict__ dv,
+                        int G, int Sq, int Sk, int D, float scale,
+                        float scale_log2, int causal, int window,
+                        int q_offset, int vec) {
+  constexpr int KS = (NT + 1) / 2;            // k16 steps over the head dim
+  constexpr int DP = 16 * KS;
+  constexpr int ST = DP + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fm::bf16* Ks = reinterpret_cast<fm::bf16*>(smem_raw);
+  fm::bf16* Vs = Ks + kTcBK * ST;
+  fm::bf16* QO = Vs + kTcBK * ST;   // stage s: q at 2 s kTcBQ rows, dout after
+  float* LD = reinterpret_cast<float*>(QO + 4 * kTcBQ * ST);  // lse, delta
+
+  const int hk = blockIdx.x;
+  const int k0 = blockIdx.y * kTcBK;
+  const int nk = min(kTcBK, Sk - k0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int kw = k0 + 16 * warp;              // the warp's first key
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+
+  fm::zero_cols<kTcThreads>(Ks, 2 * kTcBK + 4 * kTcBQ, D, DP, ST);
+  fm::load_tile<kTcThreads>(Ks, k + ((long long)hk * Sk + k0) * D, nk, kTcBK,
+                            D, ST, vec);
+  fm::load_tile<kTcThreads>(Vs, v + ((long long)hk * Sk + k0) * D, nk, kTcBK,
+                            D, ST, vec);
+  // the rows that see a key of the tile, in whole q tiles (q_tiles)
+  const int rbeg = causal ? max(0, k0 - q_offset) : 0;
+  const int rend = window > 0 ? min(Sq, k0 + nk - 1 + window - q_offset) : Sq;
+  const int t0 = rbeg / kTcBQ;
+  const int nt = rend > rbeg ? (rend + kTcBQ - 1) / kTcBQ - t0 : 0;
+  const int n = G * nt;                       // (q head, q tile) steps
+  auto load_q = [&](int i, int s) {
+    const int gq = i / nt, q0 = (t0 + i - gq * nt) * kTcBQ;
+    const int rows = min(kTcBQ, Sq - q0);
+    const long long row0 = (long long)(hk * G + gq) * Sq + q0;
+    fm::bf16* Qs = QO + 2 * s * kTcBQ * ST;
+    fm::load_tile<kTcThreads>(Qs, q + row0 * D, rows, kTcBQ, D, ST, vec);
+    fm::load_tile<kTcThreads>(Qs + kTcBQ * ST, dout + row0 * D, rows, kTcBQ,
+                              D, ST, vec);
+    float* L = LD + 2 * s * kTcBQ;
+    for (int r = threadIdx.x; r < 2 * kTcBQ; r += kTcThreads) {
+      const int rr = r & (kTcBQ - 1);
+      const bool ok = rr < rows;
+      fm::cp_async4(L + r, (r < kTcBQ ? lse : delta) + row0 + (ok ? rr : 0),
+                    ok);
+    }
+  };
+  if (n > 0) load_q(0, 0);
+  fm::cp_async_commit();
+
+  float dka[NT][4], dva[NT][4];
+#pragma unroll
+  for (int c = 0; c < NT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[c][e] = dva[c][e] = 0.f;
+  const uint32_t k_a = fm::smem_u32(Ks + 16 * warp * ST + fm::a_off(lane, ST));
+  const uint32_t v_a = fm::smem_u32(Vs + 16 * warp * ST + fm::a_off(lane, ST));
+  const uint32_t qo_b = fm::smem_u32(QO + fm::b_off(lane, ST));
+  const uint32_t qo_t = fm::smem_u32(QO + fm::a_off(lane, ST));
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i & 1;
+    if (i + 1 < n) load_q(i + 1, s ^ 1);
+    fm::cp_async_commit();
+    fm::cp_async_wait<1>();            // step i's tiles are in
+    __syncthreads();
+    const int gq = i / nt, q0 = (t0 + i - gq * nt) * kTcBQ;
+    const int cls = fm::tile_class(q0, kTcBQ, Sq, kw, 16, Sk, causal, window,
+                                   q_offset);
+    if (cls != fm::kSkip) {
+      const uint32_t qs = 2u * 2 * s * kTcBQ * ST;   // the q tile, bytes
+      const uint32_t os = qs + 2u * kTcBQ * ST;       // the dout tile
+      float st[kTcQN][4], dpt[kTcQN][4];
+#pragma unroll
+      for (int j = 0; j < kTcQN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ak[4], av[4];
+        fm::ldsm_x4(ak, k_a + 32u * kk);
+        fm::ldsm_x4(av, v_a + 32u * kk);
+#pragma unroll
+        for (int j = 0; j < kTcQN / 2; ++j) {
+          const uint32_t off = 2u * (16 * j * ST + 16 * kk);
+          uint32_t b[4];
+          fm::ldsm_x4(b, qo_b + qs + off);
+          fm::mma_bf16(st[2 * j], ak, b[0], b[1]);
+          fm::mma_bf16(st[2 * j + 1], ak, b[2], b[3]);
+          fm::ldsm_x4(b, qo_b + os + off);
+          fm::mma_bf16(dpt[2 * j], av, b[0], b[1]);
+          fm::mma_bf16(dpt[2 * j + 1], av, b[2], b[3]);
+        }
+      }
+      // element (j, e): key kw + g + 8 (e / 2), q row q0 + 8 j + c2 + e % 2
+      const float* L = LD + 2 * s * kTcBQ;
+#pragma unroll
+      for (int j = 0; j < kTcQN; ++j) {
+        const float2 lj = *reinterpret_cast<const float2*>(L + 8 * j + c2);
+        const float2 dj =
+            *reinterpret_cast<const float2*>(L + kTcBQ + 8 * j + c2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool ok = cls == fm::kFull;
+          if (!ok) {
+            const int kp = kw + g + 8 * (e >> 1);
+            const int qr = q0 + 8 * j + c2 + (e & 1);
+            ok = kp < Sk && qr < Sq &&
+                 fm::live(qr + q_offset, kp, causal, window);
+          }
+          const float lq = (e & 1) ? lj.y : lj.x;
+          const float dl = (e & 1) ? dj.y : dj.x;
+          const float p =
+              ok ? exp2f(st[j][e] * scale_log2 - lq * fm::kLog2e) : 0.f;
+          dpt[j][e] = p * (dpt[j][e] - dl) * scale;
+          st[j][e] = p;
+        }
+      }
+      // dV += P^T dout, dK += dS^T Q over the tile's 64 rows
+#pragma unroll
+      for (int j = 0; j < kTcQN / 2; ++j) {
+        uint32_t ap[4], ad[4];
+        fm::c_to_a(ap, st[2 * j], st[2 * j + 1]);
+        fm::c_to_a(ad, dpt[2 * j], dpt[2 * j + 1]);
+        const uint32_t oj = qo_t + os + 2u * 16 * j * ST;
+        const uint32_t qj = qo_t + qs + 2u * 16 * j * ST;
+#pragma unroll
+        for (int c = 0; c < NT / 2; ++c) {
+          uint32_t b[4];
+          fm::ldsm_x4_t(b, oj + 32u * c);
+          fm::mma_bf16(dva[2 * c], ap, b[0], b[1]);
+          fm::mma_bf16(dva[2 * c + 1], ap, b[2], b[3]);
+          fm::ldsm_x4_t(b, qj + 32u * c);
+          fm::mma_bf16(dka[2 * c], ad, b[0], b[1]);
+          fm::mma_bf16(dka[2 * c + 1], ad, b[2], b[3]);
+        }
+        if (NT & 1) {
+          uint32_t b[2];
+          fm::ldsm_x2_t(b, oj + 16u * (NT - 1));
+          fm::mma_bf16(dva[NT - 1], ap, b[0], b[1]);
+          fm::ldsm_x2_t(b, qj + 16u * (NT - 1));
+          fm::mma_bf16(dka[NT - 1], ad, b[0], b[1]);
+        }
+      }
+    }
+    __syncthreads();                   // before step i + 2 overwrites stage s
+  }
+  fm::cp_async_wait<0>();            // none in flight at exit
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = kw + g + 8 * hr;
+    if (key < k0 + nk) {
+      const long long off = ((long long)hk * Sk + key) * D;
+#pragma unroll
+      for (int c = 0; c < NT; ++c) {
+        const int d = 8 * c + c2;
+        const float k0v = dka[c][2 * hr], k1v = dka[c][2 * hr + 1];
+        const float v0v = dva[c][2 * hr], v1v = dva[c][2 * hr + 1];
+        if (d + 1 < D && !(D & 1)) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + d) =
+              __floats2bfloat162_rn(k0v, k1v);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + d) =
+              __floats2bfloat162_rn(v0v, v1v);
+        } else {
+          if (d < D) {
+            dk[off + d] = __float2bfloat16_rn(k0v);
+            dv[off + d] = __float2bfloat16_rn(v0v);
+          }
+          if (d + 1 < D) {
+            dk[off + d + 1] = __float2bfloat16_rn(k1v);
+            dv[off + d + 1] = __float2bfloat16_rn(v1v);
+          }
+        }
+      }
+    }
+  }
+}
+
+__host__ inline bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15u) == 0;
+}
+
+template <int NT>
+int launch_dkv_tc(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, int BHkv, int G, int Sq, int Sk, int D,
+                  float scale, int causal, int window, int q_offset,
+                  cudaStream_t stream) {
+  const int bytes = dkv_tc_smem_bytes(16 * ((NT + 1) / 2) + 8);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_tc_kernel<NT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = D % 8 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(dout);
+  dim3 grid((unsigned)BHkv, (unsigned)((Sk + kTcBK - 1) / kTcBK));
+  flash_bwd_dkv_tc_kernel<NT><<<grid, kTcThreads, bytes, stream>>>(
+      (const fm::bf16*)q, (const fm::bf16*)k, (const fm::bf16*)v,
+      (const fm::bf16*)dout, (const float*)lse, (const float*)delta,
+      (fm::bf16*)dk, (fm::bf16*)dv, G, Sq, Sk, D, scale, scale * fm::kLog2e,
+      causal, window, q_offset, vec);
+  return (int)cudaGetLastError();
+}
+
+// the smallest instantiated n8 tile count that covers D
+int launch_dkv_tc_any(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dk, void* dv, int BHkv, int G, int Sq, int Sk,
+                      int D, float scale, int causal, int window,
+                      int q_offset, cudaStream_t s) {
+  const int nt = (D + 7) / 8;
+  if (nt <= 2)
+    return launch_dkv_tc<2>(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
+                            Sk, D, scale, causal, window, q_offset, s);
+  if (nt <= 4)
+    return launch_dkv_tc<4>(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
+                            Sk, D, scale, causal, window, q_offset, s);
+  if (nt <= 8)
+    return launch_dkv_tc<8>(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
+                            Sk, D, scale, causal, window, q_offset, s);
+  if (nt <= 15)
+    return launch_dkv_tc<15>(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
+                             Sk, D, scale, causal, window, q_offset, s);
+  return launch_dkv_tc<16>(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
+                           Sk, D, scale, causal, window, q_offset, s);
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  q and dout (BHkv * G, Sq, D), k, v, dk, dv
+// dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core
+// kernel).  q and dout (BHkv * G, Sq, D), k, v, dk, dv
 // (BHkv, Sk, D), lse and delta (BHkv * G, Sq) float32; all contiguous,
 // 1 <= D <= 128, Sk >= 1.  Writes every element of dk and dv.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -396,9 +669,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
                              Sk, D, scale, causal, window, q_offset, s);
-  return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, BHkv,
-                                   G, Sq, Sk, D, scale, causal, window,
-                                   q_offset, s);
+  return launch_dkv_tc_any(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
+                           Sk, D, scale, causal, window, q_offset, s);
 }
 
 // The same layout; writes every element of dq (BHq, Sq, D).

@@ -1,5 +1,5 @@
-// FlashAttention-2 forward for Hopper (sm_90a), float32 arithmetic on the
-// CUDA cores.
+// FlashAttention-2 forward for Hopper (sm_90a): bf16 inputs on the tensor
+// cores (mma.sync), float32 inputs on the CUDA cores.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py::flash_fwd (the
 // Pallas TPU kernel behind kernels/flash_attention/ops.py::mha, which
@@ -13,9 +13,44 @@
 //
 // What bounds it: operations.  At the 32k prefill of h2o-danube-3-4b one call
 // does 4*Hq*D flops on each of 125.8 M live (query, key) pairs a head, 1.9e12
-// flops, against 0.5 GB to read q, k, v and write out.  This first kernel
-// runs them as float32 FMAs on the CUDA cores (a later one moves them to the
-// tensor cores).  The design:
+// flops, against 0.5 GB to read q, k, v and write out: 1.95 ms at the bf16
+// tensor-core rate.  The route is chosen by dtype alone, in the entry point:
+//
+// bf16 (the model's path): flash_fwd_tc_kernel, mma.sync.m16n8k16 with f32
+// accumulators (flash_mma.cuh has the fragment layout).  mma.sync rather
+// than wgmma: it needs no TMA descriptors (the plain-C build stays), P goes
+// from the S accumulators into the P V product without leaving registers,
+// and it already beats SDPA's causal kernel at 4,096 positions; wgmma is
+// left to a later kernel.
+//   * grid (B*Hq, ceil(Sq/128)), 4 warps a block, 32 q rows a warp (two
+//     m16 tiles that share every k and v fragment: half the shared-memory
+//     reads a product of 16-row warps); the q blocks are launched from the
+//     last down, the heaviest rows of a causal mask first;
+//   * q, k and v stay bf16 in shared memory, D padded with zeros to a
+//     multiple of 16 (120 -> 128) in rows of 16 more bytes (ldmatrix free
+//     of bank conflicts); the 64-key k and v tiles stream through two
+//     stages of cp.async (a thread a 16-byte column chunk, no division), so
+//     the next tile arrives while this one is multiplied; a D that is not a
+//     multiple of 8, or an unaligned tensor, is loaded element by element
+//     into the same tiles;
+//   * S = Q K^T and O += P V on the tensor cores; the online softmax runs
+//     in registers (exp2 with scale*log2(e) folded in, one MUFU ex2 a
+//     score; row max and sum over the four lanes of a row by shuffles; l
+//     summed from the f32 p; O rescaled only when a row's max moved), and
+//     only P is rounded to bf16, as the product's operand;
+//   * the kv loop keeps the f32 kernel's bounds (kv_tiles in kernel.py);
+//     each warp tests the mask only on the tiles that need it (tile_class:
+//     diagonal tiles, the window's lower edge, ragged tails), skips the
+//     tiles where its rows see no key and multiplies the rest unmasked; a
+//     masked pair gets p = 0 explicitly;
+//   * registers: 120 f32 accumulators of O at D 120 (ceil(D/8) n8 tiles,
+//     fixed by the template: 2, 4, 8, 15, 16) and 64 of S for a 64-key
+//     step, inside the 255 a thread that two 128-thread blocks an SM leave
+//     with no spills (ptxas -v); masked tiles, and every tile at D > 120,
+//     go in two 32-key steps.
+//
+// float32 (the model's f32 checks): flash_fwd_kernel, float32 FMAs on the
+// CUDA cores:
 //   * grid (B*Hq, ceil(Sq/64)); a block of 256 threads holds a 64-row q tile
 //     and the rows' (m, l, acc) on chip, and streams its kv head's 64-key k
 //     and v tiles through shared memory (f32, the k rows padded to an odd
@@ -29,12 +64,14 @@
 //   * each thread computes a 4 x 4 register tile of the 64 x 64 scores
 //     (rows ty + 16i, keys tx + 16j), the scores go to shared memory (over
 //     the k tile), one warp a row updates (m, l) by shuffles, and each
-//     thread accumulates 4 rows x ceil(D/16) columns of P V in registers;
-//   * ragged tails: rows past Sq are not written and keys past Sk are
-//     masked, so any Sq and Sk work (Pallas needs multiples of the block).
-// D may be at most 128 (kDMax).
+//     thread accumulates 4 rows x ceil(D/16) columns of P V in registers.
+// Both: rows past Sq are not written and keys past Sk are masked, so any
+// Sq and Sk work (Pallas needs multiples of the block); D may be at most 128
+// (kDMax).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -45,19 +82,6 @@ constexpr int kDMax = 128;
 constexpr int kDC = kDMax / 16;    // accumulator columns a thread
 constexpr int kPS = kBK + 1;       // score tile row stride
 constexpr float kNegInf = -1e30f;  // NEG_INF of the reference
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ bool live(int qp, int kp, int causal, int window) {
   return (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
@@ -71,10 +95,9 @@ __host__ __device__ inline int smem_floats(int D) {
   return kBQ * DP + kt + kBK * D + 3 * kBQ;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int G, int Sq, int Sk, int D,
                  float scale, int causal, int window, int q_offset) {
   extern __shared__ float smem[];
@@ -92,13 +115,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nq = min(kBQ, Sq - q0);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int lane = tid & 31, warp = tid >> 5;
-  const T* qh = q + ((long long)h * Sq + q0) * D;
-  const T* kh = k + (long long)(h / G) * Sk * D;
-  const T* vh = v + (long long)(h / G) * Sk * D;
+  const float* qh = q + ((long long)h * Sq + q0) * D;
+  const float* kh = k + (long long)(h / G) * Sk * D;
+  const float* vh = v + (long long)(h / G) * Sk * D;
 
   for (int r = warp; r < kBQ; r += kThreads / 32)
     for (int c = lane; c < D; c += 32)
-      Qs[r * DP + c] = r < nq ? to_f(qh[(long long)r * D + c]) : 0.f;
+      Qs[r * DP + c] = r < nq ? qh[(long long)r * D + c] : 0.f;
   if (tid < kBQ) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
@@ -124,8 +147,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool ok = r < nk;
       const long long off = (long long)(k0 + r) * D;
       for (int c = lane; c < D; c += 32) {
-        Ks[r * DP + c] = ok ? to_f(kh[off + c]) : 0.f;
-        Vs[r * D + c] = ok ? to_f(vh[off + c]) : 0.f;
+        Ks[r * DP + c] = ok ? kh[off + c] : 0.f;
+        Vs[r * D + c] = ok ? vh[off + c] : 0.f;
       }
     }
     __syncthreads();
@@ -220,11 +243,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = ty + 16 * i;
     if (r < nq) {
       const float l = fmaxf(l_s[r], 1e-30f);
-      T* orow = out + ((long long)h * Sq + q0 + r) * D;
+      float* orow = out + ((long long)h * Sq + q0 + r) * D;
 #pragma unroll
       for (int c = 0; c < kDC; ++c) {
         const int d = tx + 16 * c;
-        if (d < D) orow[d] = from_f<T>(acc[i][c] / l);
+        if (d < D) orow[d] = acc[i][c] / l;
       }
     }
   }
@@ -233,26 +256,342 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int BHq, int G, int Sq, int Sk, int D, float scale, int causal,
            int window, int q_offset, cudaStream_t stream) {
   const int bytes = 4 * smem_floats(D);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((unsigned)BHq, (unsigned)((Sq + kBQ - 1) / kBQ));
-  flash_fwd_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, G, Sq, Sk,
-      D, scale, causal, window, q_offset);
+  flash_fwd_kernel<<<grid, kThreads, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out,
+      (float*)lse, G, Sq, Sk, D, scale, causal, window, q_offset);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+namespace fm = flash_mma;
+
+constexpr int kTcMT = 2;                      // m16 tiles (32 q rows) a warp
+constexpr int kTcWarps = 4;
+constexpr int kTcBQ = 16 * kTcMT * kTcWarps;  // 128 q rows a block
+constexpr int kTcBK = 64;                     // keys a tile
+constexpr int kTcThreads = 32 * kTcWarps;
+
+// shared memory of a block in bytes, for a row stride of ST bf16: the q
+// tile and two stages of (k tile, v tile)
+constexpr int tc_smem_bytes(int ST) { return 2 * (kTcBQ + 4 * kTcBK) * ST; }
+
+// One warp's step over KH keys of a k/v tile: S = Q K^T for its 32 rows
+// (two m16 tiles, which share every k and v fragment), the online softmax
+// update in registers, O += P V.  kMask: test the mask on each pair
+// (tile_class kMasked), else every pair is live (kFull).  Lane (g, c2)
+// holds rows row0 + 16 i + 8 h of m-tile i, h = 0, 1 (index [i][h]), and
+// the keys kc + 8 j + {0, 1} of each n8 tile j; m is the running max in
+// log2 units, l this lane's share of the denominator.  q_a, k_b, v_a: the
+// lane's ldmatrix addresses in the warp's q rows and at the step's first
+// key of the k and v tiles.
+template <int NT, bool kMask, int KH>
+__device__ __forceinline__ void fwd_tile(float (&o)[kTcMT][NT][4],
+                                         float (&m)[kTcMT][2],
+                                         float (&l)[kTcMT][2], uint32_t q_a,
+                                         uint32_t k_b, uint32_t v_a,
+                                         float scale_log2, int row0, int kc,
+                                         int Sq, int Sk, int causal,
+                                         int window, int q_offset) {
+  constexpr int KS = (NT + 1) / 2;
+  constexpr int ST = 16 * KS + 8;
+  constexpr int KN = KH / 8;                  // n8 tiles of keys
+  float sc[kTcMT][KN][4];
+#pragma unroll
+  for (int i = 0; i < kTcMT; ++i)
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[i][j][e] = 0.f;
+#pragma unroll 1
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t a[kTcMT][4];
+#pragma unroll
+    for (int i = 0; i < kTcMT; ++i)
+      fm::ldsm_x4(a[i], q_a + 2u * (16 * i * ST + 16 * kk));
+#pragma unroll
+    for (int j = 0; j < KN / 2; ++j) {
+      uint32_t b[4];
+      fm::ldsm_x4(b, k_b + 2u * (16 * j * ST + 16 * kk));
+#pragma unroll
+      for (int i = 0; i < kTcMT; ++i) {
+        fm::mma_bf16(sc[i][2 * j], a[i], b[0], b[1]);
+        fm::mma_bf16(sc[i][2 * j + 1], a[i], b[2], b[3]);
+      }
+    }
+  }
+  // element (i, j, e): row row0 + 16 i + 8 (e / 2), key kc + 8 j + e % 2;
+  // a masked pair's score becomes -inf, a value no live score takes here
+  // (m starts at NEG_INF, finite), and its p is set to 0 below
+  float al[kTcMT][2];
+  bool same = true;
+#pragma unroll
+  for (int i = 0; i < kTcMT; ++i) {
+    float mx[2] = {m[i][0], m[i][1]};
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[i][j][e] * scale_log2;
+        if (kMask) {
+          const int row = row0 + 16 * i + 8 * (e >> 1);
+          const int kp = kc + 8 * j + (e & 1);
+          if (!(row < Sq && kp < Sk &&
+                fm::live(row + q_offset, kp, causal, window)))
+            x = -INFINITY;
+        }
+        sc[i][j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fm::quad_max(mx[h]);
+      al[i][h] = fm::ex2(m[i][h] - mx[h]);
+      same = same && al[i][h] == 1.f;
+      m[i][h] = mx[h];
+    }
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[i][j][e];
+        const float p =
+            kMask && x == -INFINITY ? 0.f : fm::ex2(x - mx[e >> 1]);
+        sc[i][j][e] = p;
+        rs[e >> 1] += p;
+      }
+    l[i][0] = l[i][0] * al[i][0] + rs[0];
+    l[i][1] = l[i][1] * al[i][1] + rs[1];
+  }
+  // alpha is exactly 1 where a row's max stayed: skip the product then
+  if (!__all_sync(0xffffffffu, same)) {
+#pragma unroll
+    for (int i = 0; i < kTcMT; ++i)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        o[i][n][0] *= al[i][0];
+        o[i][n][1] *= al[i][0];
+        o[i][n][2] *= al[i][1];
+        o[i][n][3] *= al[i][1];
+      }
+  }
+  // O += P V, P rounded to bf16 as the A operand
+#pragma unroll
+  for (int j = 0; j < KN / 2; ++j) {
+    uint32_t a[kTcMT][4];
+#pragma unroll
+    for (int i = 0; i < kTcMT; ++i)
+      fm::c_to_a(a[i], sc[i][2 * j], sc[i][2 * j + 1]);
+    const uint32_t vj = v_a + 2u * 16 * j * ST;
+#pragma unroll
+    for (int n = 0; n < NT / 2; ++n) {
+      uint32_t b[4];
+      fm::ldsm_x4_t(b, vj + 2u * 16 * n);
+#pragma unroll
+      for (int i = 0; i < kTcMT; ++i) {
+        fm::mma_bf16(o[i][2 * n], a[i], b[0], b[1]);
+        fm::mma_bf16(o[i][2 * n + 1], a[i], b[2], b[3]);
+      }
+    }
+    if (NT & 1) {
+      uint32_t b[2];
+      fm::ldsm_x2_t(b, vj + 2u * 8 * (NT - 1));
+#pragma unroll
+      for (int i = 0; i < kTcMT; ++i)
+        fm::mma_bf16(o[i][NT - 1], a[i], b[0], b[1]);
+    }
+  }
+}
+
+template <int NT>                             // n8 tiles of the head dim
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_fwd_tc_kernel(const fm::bf16* __restrict__ q,
+                    const fm::bf16* __restrict__ k,
+                    const fm::bf16* __restrict__ v, fm::bf16* __restrict__ out,
+                    float* __restrict__ lse, int G, int Sq, int Sk, int D,
+                    float scale_log2, int causal, int window, int q_offset,
+                    int vec) {
+  constexpr int KS = (NT + 1) / 2;            // k16 steps over the head dim
+  constexpr int DP = 16 * KS;
+  constexpr int ST = DP + 8;
+  constexpr int WR = 16 * kTcMT;              // q rows a warp
+  // keys a step on a kFull tile: the whole tile, or half where O's
+  // accumulators (D > 120) leave too few registers for 64 keys of scores
+  constexpr int KF = NT <= 15 ? kTcBK : kTcBK / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fm::bf16* Qs = reinterpret_cast<fm::bf16*>(smem_raw);
+  fm::bf16* KV = Qs + kTcBQ * ST;   // stage s: k at 2 s kTcBK rows, v after
+
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kTcBQ;
+  const int nq = min(kTcBQ, Sq - q0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = q0 + WR * warp;              // the warp's first row
+
+  fm::zero_cols<kTcThreads>(Qs, kTcBQ + 4 * kTcBK, D, DP, ST);
+  fm::load_tile<kTcThreads>(Qs, q + ((long long)blockIdx.x * Sq + q0) * D,
+                            nq, kTcBQ, D, ST, vec);
+  // the live key range of the block's rows, in whole tiles (kv_tiles)
+  const int qlo = q0 + q_offset, qhi = q0 + nq - 1 + q_offset;
+  const int kbeg = window > 0 ? max(0, qlo - window + 1) : 0;
+  const int kend = causal ? min(Sk, qhi + 1) : Sk;
+  const int t0 = kbeg / kTcBK;
+  const int t1 = kend > kbeg ? (kend + kTcBK - 1) / kTcBK : t0;
+  auto load_kv = [&](int t, int s) {
+    const int k0 = t * kTcBK;
+    const long long off = ((long long)(blockIdx.x / G) * Sk + k0) * D;
+    fm::bf16* Ks = KV + 2 * s * kTcBK * ST;
+    fm::load_tile<kTcThreads>(Ks, k + off, min(kTcBK, Sk - k0), kTcBK, D, ST,
+                              vec);
+    fm::load_tile<kTcThreads>(Ks + kTcBK * ST, v + off, min(kTcBK, Sk - k0),
+                              kTcBK, D, ST, vec);
+  };
+  if (t0 < t1) load_kv(t0, 0);
+  fm::cp_async_commit();
+
+  float o[kTcMT][NT][4];
+#pragma unroll
+  for (int i = 0; i < kTcMT; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][n][e] = 0.f;
+  float m[kTcMT][2], l[kTcMT][2];
+#pragma unroll
+  for (int i = 0; i < kTcMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[i][h] = fm::kNegInf;
+      l[i][h] = 0.f;
+    }
+  const int row0 = r0 + (lane >> 2), c2 = 2 * (lane & 3);
+  const uint32_t q_a = fm::smem_u32(Qs + WR * warp * ST + fm::a_off(lane, ST));
+  const uint32_t k_b = fm::smem_u32(KV + fm::b_off(lane, ST));
+  const uint32_t v_a = fm::smem_u32(KV + kTcBK * ST + fm::a_off(lane, ST));
+
+  for (int t = t0; t < t1; ++t) {
+    const int s = (t - t0) & 1;
+    if (t + 1 < t1) load_kv(t + 1, s ^ 1);
+    fm::cp_async_commit();
+    fm::cp_async_wait<1>();            // tile t is in
+    __syncthreads();
+    const int k0 = t * kTcBK;
+    const uint32_t stage = 2u * 2 * s * kTcBK * ST;   // bytes
+    const int cls = fm::tile_class(r0, WR, Sq, k0, kTcBK, Sk, causal, window,
+                                   q_offset);
+    if (cls == fm::kFull && KF == kTcBK) {
+      fwd_tile<NT, false, kTcBK>(o, m, l, q_a, k_b + stage, v_a + stage,
+                                 scale_log2, row0, k0 + c2, Sq, Sk, causal,
+                                 window, q_offset);
+    } else if (cls == fm::kFull) {
+#pragma unroll 1
+      for (int hk = 0; hk < kTcBK; hk += kTcBK / 2)
+        fwd_tile<NT, false, kTcBK / 2>(
+            o, m, l, q_a, k_b + stage + 2u * hk * ST,
+            v_a + stage + 2u * hk * ST, scale_log2, row0, k0 + hk + c2, Sq,
+            Sk, causal, window, q_offset);
+    } else if (cls == fm::kMasked) {
+      // two half steps: the mask's arithmetic beside half the scores
+#pragma unroll 1
+      for (int hk = 0; hk < kTcBK; hk += kTcBK / 2)
+        fwd_tile<NT, true, kTcBK / 2>(
+            o, m, l, q_a, k_b + stage + 2u * hk * ST,
+            v_a + stage + 2u * hk * ST, scale_log2, row0, k0 + hk + c2, Sq,
+            Sk, causal, window, q_offset);
+    }
+    __syncthreads();                   // before tile t + 2 overwrites stage s
+  }
+  fm::cp_async_wait<0>();            // none in flight at exit
+
+#pragma unroll
+  for (int i = 0; i < kTcMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float lt = fm::quad_sum(l[i][h]);
+      const int row = row0 + 16 * i + 8 * h;
+      if (row < Sq) {
+        const float lc = fmaxf(lt, 1e-30f);
+        fm::bf16* orow = out + ((long long)blockIdx.x * Sq + row) * D;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int c = 8 * n + c2;
+          const float x0 = o[i][n][2 * h] / lc, x1 = o[i][n][2 * h + 1] / lc;
+          if (c + 1 < D && !(D & 1)) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+                __floats2bfloat162_rn(x0, x1);
+          } else {
+            if (c < D) orow[c] = __float2bfloat16_rn(x0);
+            if (c + 1 < D) orow[c + 1] = __float2bfloat16_rn(x1);
+          }
+        }
+        // a row with no live key keeps m = NEG_INF in natural units too
+        if ((lane & 3) == 0)
+          lse[(long long)blockIdx.x * Sq + row] =
+              (lt > 0.f ? m[i][h] * fm::kLn2 : fm::kNegInf) + logf(lc);
+      }
+    }
+}
+
+__host__ inline bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15u) == 0;
+}
+
+template <int NT>
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              void* lse, int BHq, int G, int Sq, int Sk, int D, float scale,
+              int causal, int window, int q_offset, cudaStream_t stream) {
+  const int bytes = tc_smem_bytes(16 * ((NT + 1) / 2) + 8);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  dim3 grid((unsigned)BHq, (unsigned)((Sq + kTcBQ - 1) / kTcBQ));
+  flash_fwd_tc_kernel<NT><<<grid, kTcThreads, bytes, stream>>>(
+      (const fm::bf16*)q, (const fm::bf16*)k, (const fm::bf16*)v,
+      (fm::bf16*)out, (float*)lse, G, Sq, Sk, D, scale * fm::kLog2e, causal,
+      window, q_offset, vec);
+  return (int)cudaGetLastError();
+}
+
+// the smallest instantiated n8 tile count that covers D
+int launch_tc_any(const void* q, const void* k, const void* v, void* out,
+                  void* lse, int BHq, int G, int Sq, int Sk, int D,
+                  float scale, int causal, int window, int q_offset,
+                  cudaStream_t s) {
+  const int nt = (D + 7) / 8;
+  if (nt <= 2)
+    return launch_tc<2>(q, k, v, out, lse, BHq, G, Sq, Sk, D, scale, causal,
+                        window, q_offset, s);
+  if (nt <= 4)
+    return launch_tc<4>(q, k, v, out, lse, BHq, G, Sq, Sk, D, scale, causal,
+                        window, q_offset, s);
+  if (nt <= 8)
+    return launch_tc<8>(q, k, v, out, lse, BHq, G, Sq, Sk, D, scale, causal,
+                        window, q_offset, s);
+  if (nt <= 15)
+    return launch_tc<15>(q, k, v, out, lse, BHq, G, Sq, Sk, D, scale,
+                         causal, window, q_offset, s);
+  return launch_tc<16>(q, k, v, out, lse, BHq, G, Sq, Sk, D, scale, causal,
+                       window, q_offset, s);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  q (BHq, Sq, D), k and v (BHq / G, Sk, D),
-// out like q, lse (BHq, Sq) float32; all contiguous, 1 <= D <= 128.
+// dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core
+// kernel).  q (BHq, Sq, D), k and v (BHq / G, Sk, D), out like q, lse (BHq,
+// Sq) float32; all contiguous, 1 <= D <= 128.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int BHq, int G, int Sq, int Sk,
                          int D, float scale, int causal, int window,
@@ -261,8 +600,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   if (D < 1 || D > kDMax || G < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(q, k, v, out, lse, BHq, G, Sq, Sk, D, scale, causal,
+    return launch(q, k, v, out, lse, BHq, G, Sq, Sk, D, scale, causal,
                          window, q_offset, s);
-  return launch<__nv_bfloat16>(q, k, v, out, lse, BHq, G, Sq, Sk, D, scale,
-                               causal, window, q_offset, s);
+  return launch_tc_any(q, k, v, out, lse, BHq, G, Sq, Sk, D, scale, causal,
+                       window, q_offset, s);
 }

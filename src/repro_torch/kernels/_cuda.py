@@ -3,8 +3,9 @@
 Each source is compiled on first use with ``nvcc`` into a shared library
 with a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds).  Libraries land in ``build/kernels/`` at the root of
-the checkout, named by a hash of the source and the flags, so a changed
-source is rebuilt and an unchanged one is reused.  :func:`build` compiles
+the checkout, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source or header is rebuilt and
+an unchanged one is reused.  :func:`build` compiles
 several sources in parallel, one ``nvcc`` each.
 
 Every C entry point launches on the stream it is given (PyTorch's current
@@ -60,9 +61,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict:

@@ -16,7 +16,10 @@ outside its kernels) and returns dq (``flash_bwd_dq``) and dk, dv
 pairs and ``ds = p * (dp - delta) * scale``.  Any Sq and Sk >= 1 work (the
 kernels mask the ragged tails; Pallas needs multiples of its blocks), and
 D <= 128.  Each wrapper runs its plain version for CPU tensors and launches
-its kernel for CUDA tensors.
+its kernel for CUDA tensors.  On the card the route is chosen by dtype
+alone: bf16 ``flash_fwd`` and ``flash_bwd_dkv`` run their tensor-core
+kernels (``flash_fwd_tc_kernel``, ``flash_bwd_dkv_tc_kernel``), float32 and
+``flash_bwd_dq`` the CUDA-core ones.
 """
 from __future__ import annotations
 
@@ -27,33 +30,58 @@ import torch
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
 
-BQ = BK = 64            # the kernel's q rows a block and keys a tile
+BQ = BK = 64            # the CUDA-core kernels' q rows a block, keys a tile
+# the tensor-core kernels (bf16): flash_fwd_tc_kernel's q rows a block, keys
+# a tile and q rows a warp; flash_bwd_dkv_tc_kernel's keys a block, q rows a
+# tile and keys a warp
+TC_BQ, TC_BK, TC_WARP_ROWS = 128, 64, 32
+DKV_BK, DKV_BQ, DKV_WARP_KEYS = 64, 64, 16
+SKIP, MASKED, FULL = 0, 1, 2    # tile_class
 MAX_D = 128
 PLAIN_ROWS = 1024       # query rows the plain version scores at once
 
 
 def kv_tiles(q0: int, rows: int, Sk: int, *, causal: bool, window: int,
-             q_offset: int = 0) -> range:
-    """The kv tiles (of BK keys) the kernel visits for the q block of rows
+             q_offset: int = 0, bk: int = BK) -> range:
+    """The kv tiles (of ``bk`` keys) a kernel visits for the q block of rows
     [q0, q0 + rows): those the mask leaves live for some row.  Mirrors the
-    loop bounds in the source."""
+    loop bounds in the sources (flash_fwd's two kernels, flash_bwd_dq)."""
     qlo, qhi = q0 + q_offset, q0 + rows - 1 + q_offset
     kbeg = max(0, qlo - window + 1) if window > 0 else 0
     kend = min(Sk, qhi + 1) if causal else Sk
-    t0 = kbeg // BK
-    return range(t0, -(-kend // BK) if kend > kbeg else t0)
+    t0 = kbeg // bk
+    return range(t0, -(-kend // bk) if kend > kbeg else t0)
 
 
 def q_tiles(k0: int, cols: int, Sq: int, *, causal: bool, window: int,
-            q_offset: int = 0) -> range:
-    """The q tiles (of BQ rows) the dK/dV kernel visits for the k tile of
+            q_offset: int = 0, bq: int = BQ) -> range:
+    """The q tiles (of ``bq`` rows) a dK/dV kernel visits for the k tile of
     keys [k0, k0 + cols): those holding a row that the mask lets see one of
     its keys (``qp >= k0`` causal, ``qp < k0 + cols - 1 + window`` under a
     window).  Mirrors the loop bounds in the source."""
     rbeg = max(0, k0 - q_offset) if causal else 0
     rend = min(Sq, k0 + cols - 1 + window - q_offset) if window > 0 else Sq
-    t0 = rbeg // BQ
-    return range(t0, -(-rend // BQ) if rend > rbeg else t0)
+    t0 = rbeg // bq
+    return range(t0, -(-rend // bq) if rend > rbeg else t0)
+
+
+def tile_class(q0: int, rows: int, Sq: int, k0: int, cols: int, Sk: int, *,
+               causal: bool, window: int, q_offset: int = 0) -> int:
+    """The mask over query rows [q0, q0 + rows) and keys [k0, k0 + cols), as
+    a tensor-core kernel's warp sees it: SKIP (no live pair), FULL (every
+    row and key inside [0, Sq) x [0, Sk) and every pair live: no mask test)
+    or MASKED.  Mirrors ``tile_class`` in ``csrc/flash_mma.cuh``."""
+    nq, nk = min(rows, Sq - q0), min(cols, Sk - k0)
+    if nq <= 0 or nk <= 0:
+        return SKIP
+    qlo, qhi = q0 + q_offset, q0 + nq - 1 + q_offset
+    k1 = k0 + nk - 1
+    if (causal and k0 > qhi) or (window > 0 and k1 <= qlo - window):
+        return SKIP
+    if nq == rows and nk == cols and (not causal or k1 <= qlo) and \
+            (window <= 0 or k0 > qhi - window):
+        return FULL
+    return MASKED
 
 
 def flash_fwd_plain(q, k, v, *, causal: bool, window: int, scale: float,

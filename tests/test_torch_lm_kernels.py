@@ -221,6 +221,27 @@ def test_flash_kv_tiles_cover_the_mask(Sq, Sk, q_offset, causal, window):
             assert len(tiles) <= bound
 
 
+def test_kernel_library_names_hash_the_shared_headers(tmp_path,
+                                                     monkeypatch):
+    """A kernel library's name hashes its source, every ``csrc/*.cuh`` and
+    the flags, so that an edited shared header (``flash_mma.cuh``) builds
+    every source anew instead of reusing a stale library."""
+    from repro_torch.kernels import _cuda
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = _cuda._lib_path("a")
+    assert _cuda._lib_path("a") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = _cuda._lib_path("a")
+    assert second != first and second.parent == first.parent
+    (tmp_path / "g.cuh").write_text("")
+    third = _cuda._lib_path("a")
+    assert third != second
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert _cuda._lib_path("a") not in (first, second, third)
+
+
 def test_flash_wrapper_checks():
     q = torch.zeros((4, 8, 16))
     k = torch.zeros((2, 8, 16))
