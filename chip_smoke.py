@@ -52,7 +52,7 @@ Phases, each printed on its own line:
      step: the first step's loss, gradient norm and gradients against
      ``backend="ref"``, then 2 warm-up and 8 timed steps on one batch whose
      loss must fall; the profiled step must have run only the tensor-core
-     ``flash_fwd`` and ``flash_bwd_dkv`` kernels);
+     ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` kernels);
  9c. zoo — after phase 9b's model is freed, gcn-cora, graphsage-reddit
      and bst FULL (float32, AdamW with f32 moments) at their shape cells:
      ``zoo/gcn-cora/full_graph_sm`` (``cora_like(1.0)``) and
@@ -71,7 +71,10 @@ Phases, each printed on its own line:
      ``segment_spmm`` against the model's ``common.spmm`` on cora;
  10. kernels — each kernel at the inputs the main path gave it: its
      launches during phases 5-9c, its time beside the plain version's, the
-     bound and a library call, as one JSON line;
+     bound and a library call, as one JSON line; a kernel under 0.5 ms and
+     its library call are timed again as 20 calls in one CUDA graph
+     (``graph_ms``: no host time inside), and its wrapper's host time a
+     call is given (``host_ms``);
  11. small reference — small stores against plain set computations and a
      numpy k-NN in the kernels' summation order, on one shard and on a
      4-shard mesh.
@@ -228,7 +231,7 @@ FLOAT_TOL = {"rmsnorm_fwd": {"float32": [(1e-5, 1e-5)],
              "flash_bwd_dkv": {"float32": [(2e-4, 2e-4)] * 2,
                                "bfloat16": ["tc"] * 2},
              "flash_bwd_dq": {"float32": [(2e-4, 2e-4)],
-                              "bfloat16": ["scale_ulp"]},
+                              "bfloat16": ["tc"]},
              "segment_spmm": {"float32": [(5e-5, 5e-5)],
                               "bfloat16": [(2 ** -7, 1e-4)]},
              "embedding_bag": {"float32": [(0.0, 0.0)],
@@ -434,16 +437,33 @@ def phase_kernel_checks():
         tolerance=FLOAT_TOL, tc_share_of_tolerance=TC_SHARE)
 
 
+def _probe_runs(rng, n):
+    """Sorted keys of length n in which runs of equal keys straddle the
+    warp search's first-round probe points ((i + 1) n // 33), and queries
+    on, just below and just above each run."""
+    import numpy as np
+    keys = np.sort(rng.integers(-2**31, I32MAX, n))
+    pts = np.array([(i + 1) * n // 33 for i in range(32)])
+    for p in pts[::3]:
+        keys[max(0, p - 2):p + 3] = keys[p]
+    vals = keys[pts].astype(np.int64)
+    qs = np.concatenate([vals, vals - 1, vals + 1])
+    return keys, np.clip(qs, -2**31, I32MAX)
+
+
 def _check_searchsorted_left(rng, t) -> int:
     """searchsorted_left against its plain version and the library search:
     duplicates, queries below and above every key, INT32_MAX queries and
-    pads, N not a power of two, N = 1, Q = 1, an empty index, and 16 M keys
-    (one shard's cap_idx)."""
+    pads, N not a power of two, N = 1, Q = 1, an empty index, 16 M keys
+    (one shard's cap_idx); for the warp's 32-ary search, N at the edges of
+    its rounds (33, 34, 1089 = 33^2, 1090), runs of equal keys across its
+    probe points, and all keys equal."""
     import numpy as np
     import torch
     from repro_torch.kernels.sorted_lookup import kernel as sk
     cases = []
-    for n, q in ((1000, 999), (1, 1), (1, 50), (777, 1), (16_000_000, 4096)):
+    for n, q in ((1000, 999), (1, 1), (1, 50), (777, 1), (16_000_000, 4096),
+                 (33, 40), (34, 40), (1089, 300), (1090, 300)):
         keys = np.sort(rng.integers(-2**31, I32MAX, n))
         if n > 10:
             keys[n // 3:n // 3 + n // 10] = keys[n // 3]     # duplicates
@@ -454,6 +474,11 @@ def _check_searchsorted_left(rng, t) -> int:
         cases.append((f"N={n} Q={q}", keys, qs))
     cases.append(("empty index", np.full(4096, I32MAX),
                   np.array([I32MAX, 0, -2**31])))
+    for n in (33, 1090, 16_000_000):
+        cases.append((f"N={n}, runs across the probe points",
+                      *_probe_runs(rng, n)))
+    cases.append(("N=1090, all keys equal", np.full(1090, 7),
+                  np.array([6, 7, 8, -2**31, I32MAX])))
     for what, keys, qs in cases:
         k, q = t(keys), t(qs)
         got = sk.searchsorted_left(k, q)
@@ -563,12 +588,10 @@ TC_SHARE = {}
 def _close(a, b, what, tol, bound=None) -> float:
     """``a`` within ``tol`` of ``b`` everywhere (one shape and dtype):
     ``(rtol, atol)``, ``"ulp"`` for at most one bf16 ulp apart (the bit
-    patterns of same-signed values differ by at most 1), ``"scale_ulp"``
-    for at most one bf16 ulp of ``b``'s largest magnitude apart, or
-    ``"tc"`` for at most ``bound`` (a tensor like ``a``) plus one bf16 ulp
-    of the larger of the two apart (see _flash_fwd_tc_plain).  NaN never
-    passes.  Returns the largest absolute difference."""
-    import math
+    patterns of same-signed values differ by at most 1), or ``"tc"`` for
+    at most ``bound`` (a tensor like ``a``) plus one bf16 ulp of the larger
+    of the two apart (see _flash_fwd_tc_plain).  NaN never passes.  Returns
+    the largest absolute difference."""
     import torch
     check(a.shape == b.shape and a.dtype == b.dtype,
           f"{what}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
@@ -578,9 +601,6 @@ def _close(a, b, what, tol, bound=None) -> float:
     if tol == "ulp":
         steps = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
         ok = (steps <= 1) | (err == 0)
-    elif tol == "scale_ulp":
-        top = float(b.double().abs().max())
-        ok = err <= (2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0)
     elif tol == "tc":
         big = torch.maximum(a.double().abs(), b.double().abs())
         ulp = torch.where(big > 0, torch.exp2(torch.floor(torch.log2(
@@ -605,11 +625,12 @@ def _float_tol(name, dtype):
 # The tensor-core kernels (bf16 inputs) round one operand of a product to
 # bf16 that the plain versions keep in f32: p before P V (flash_fwd's out,
 # p taken against the running max of the kernel's key step), p and ds
-# before P^T dout and dS^T Q (flash_bwd_dkv's dv and dk).  q, k, v and dout
-# are bf16 already, and every sum is f32.  So each is held against a plain
-# version that rounds the same operands at the same steps
-# (_flash_fwd_tc_plain, _flash_dkv_tc_plain), and what remains between the
-# two is f32 arithmetic done in another order:
+# before P^T dout and dS^T Q (flash_bwd_dkv's dv and dk), ds before dS K
+# (flash_bwd_dq's dq).  q, k, v and dout are bf16 already, and every sum is
+# f32.  So each is held against a plain version that rounds the same
+# operands at the same steps (_flash_fwd_tc_plain, _flash_dkv_tc_plain,
+# _flash_dq_tc_plain), and what remains between the two is f32 arithmetic
+# done in another order:
 #  * an operand the kernel rounds is computed from the same inputs through
 #    a dot product of D <= 128 exact bf16 products (s, dp), an exp2 and a
 #    few f32 products: its f32 value may differ by DOT_REL of the
@@ -620,15 +641,15 @@ def _float_tol(name, dtype):
 #    value lies that close to a bf16 midpoint the two may round it to
 #    neighbouring values; the bound adds |r(x + eps) - r(x - eps)| for each
 #    term (r: round to bf16), 0 where no midpoint is that close;
-#  * the f32 sums of the products (P V over the visited keys, the dK/dV
-#    sums over G heads and every row, O's rescaling chain) differ by
+#  * the f32 sums of the products (P V and dS K over the visited keys, the
+#    dK/dV sums over G heads and every row, O's rescaling chain) differ by
 #    SUM_REL of their terms' magnitudes: 2 sqrt(n) 2**-24 is 2**-15.5 at
 #    n = 32,768, so SUM_REL = 2**-14;
 #  * both round the f32 result to bf16 once: one ulp of the larger of the
 #    two (_close's "tc").
 # The bound stays about one ulp of the result: a key step left out moves
-# out, dk or dv by many (tests/test_torch_flash_tc.py shows it at a window
-# of 4,096 keys).
+# out, dk, dv or dq by many (tests/test_torch_flash_tc.py shows it at a
+# window of 4,096 keys).
 DOT_REL = 2.0 ** -17
 SUM_REL = 2.0 ** -14
 LOG2E = 1.4426950408889634
@@ -718,19 +739,39 @@ def _flash_fwd_tc_plain(q, k, v, *, causal, window, scale, q_offset=0):
     return out, lse, bound
 
 
+def _tc_p_ds(qa, oa, kf, vf, la, da, live, c, scale):
+    """The backward kernels' p = exp2(s c - lse log2(e)) and ds = p (dp -
+    delta) scale in f32 for a slab of rows (``la``: lse log2(e)), with how
+    far the kernels' f32 values may lie from them (see DOT_REL): p's
+    exponent from |q| |k| and its terms' sizes, ds's dp - delta from
+    |dout| |v| and |delta|.  Returns (p, ds, eps of p, eps of ds)."""
+    import torch
+    sc = torch.matmul(qa, kf.transpose(-1, -2)) * c
+    p = torch.where(live, torch.exp2(sc - la), 0.0)
+    dp = torch.matmul(oa, vf.transpose(-1, -2))
+    ds = p * (dp - da) * scale
+    arg = DOT_REL * (c * torch.matmul(qa.abs(), kf.abs().transpose(-1, -2))
+                     + sc.abs() + la.abs() + 1)
+    del sc
+    ep = torch.where(live, p * torch.expm1(arg), 0.0)
+    del arg
+    eds = ep * (dp - da).abs() * scale + DOT_REL * (
+        p * scale * (torch.matmul(oa.abs(), vf.abs().transpose(-1, -2))
+                     + da.abs()) + ds.abs())
+    return p, ds, ep, eds
+
+
 def _flash_dkv_tc_plain(q, k, v, do, lse, delta, *, causal, window, scale,
                         q_offset=0):
     """flash_bwd_dkv_tc_kernel's arithmetic in plain torch, TC_ROWS rows at
-    a time with the G q heads of a kv head stacked: p = exp2(s scale
-    log2(e) - lse log2(e)) and ds = p (dp - delta) scale in f32, dv +=
-    bf16(p)^T dout and dk += bf16(ds)^T q.  Returns (dk, dv, bound of dk,
-    bound of dv), see DOT_REL."""
+    a time with the G q heads of a kv head stacked: p and ds in f32
+    (_tc_p_ds), dv += bf16(p)^T dout and dk += bf16(ds)^T q.  Returns (dk,
+    dv, bound of dk, bound of dv), see DOT_REL."""
     import torch
     from repro_torch.kernels.flash_attention.ref import attention_mask
     BHq, Sq, D = q.shape
     BHkv, Sk, _ = k.shape
     G = BHq // BHkv
-    c = scale * LOG2E
     kf, vf = k.float()[:, None], v.float()[:, None]
     qg, og = q.view(BHkv, G, Sq, D), do.view(BHkv, G, Sq, D)
     lg, dg = lse.view(BHkv, G, Sq, 1), delta.view(BHkv, G, Sq, 1)
@@ -739,30 +780,51 @@ def _flash_dkv_tc_plain(q, k, v, do, lse, delta, *, causal, window, scale,
     for a in range(0, Sq, TC_ROWS):
         b = min(Sq, a + TC_ROWS)
         qa, oa = qg[:, :, a:b].float(), og[:, :, a:b].float()
-        la, da = lg[:, :, a:b] * LOG2E, dg[:, :, a:b]
         live = attention_mask(b - a, Sk, causal=causal, window=window,
                               q_offset=q_offset + a, device=q.device)
-        sc = torch.matmul(qa, kf.transpose(-1, -2)) * c
-        p = torch.where(live, torch.exp2(sc - la), 0.0)
-        dp = torch.matmul(oa, vf.transpose(-1, -2))
-        ds = p * (dp - da) * scale
+        p, ds, ep, eds = _tc_p_ds(qa, oa, kf, vf, lg[:, :, a:b] * LOG2E,
+                                  dg[:, :, a:b], live, scale * LOG2E, scale)
         pr, dsr = (t.to(torch.bfloat16).float() for t in (p, ds))
         dv += torch.matmul(pr.transpose(-1, -2), oa).sum(1)
         dk += torch.matmul(dsr.transpose(-1, -2), qa).sum(1)
-        # the bound: p's exponent from |q| |k| and its terms' sizes, ds's
-        # dp - delta from |dout| |v| and |delta|
-        arg = DOT_REL * (c * torch.matmul(qa.abs(), kf.abs().transpose(
-            -1, -2)) + sc.abs() + la.abs() + 1)
-        ep = torch.where(live, p * torch.expm1(arg), 0.0)
-        eds = ep * (dp - da).abs() * scale + DOT_REL * (
-            p * scale * (torch.matmul(oa.abs(), vf.abs().transpose(-1, -2))
-                         + da.abs()) + ds.abs())
         bv += torch.matmul((_spread(p, ep) + SUM_REL * pr).transpose(-1, -2),
                            oa.abs()).sum(1)
         bk += torch.matmul((_spread(ds, eds) + SUM_REL * dsr.abs())
                            .transpose(-1, -2), qa.abs()).sum(1)
-        del sc, p, dp, ds, pr, dsr, arg, ep, eds
+        del p, ds, pr, dsr, ep, eds
     return dk.to(k.dtype), dv.to(v.dtype), bk, bv
+
+
+def _flash_dq_tc_plain(q, k, v, do, lse, delta, *, causal, window, scale,
+                       q_offset=0):
+    """flash_bwd_dq_tc_kernel's arithmetic in plain torch, TC_ROWS rows at a
+    time with the G q heads of a kv head stacked: p and ds in f32
+    (_tc_p_ds), dq += bf16(ds) k.  Returns (dq, bound of dq), see
+    DOT_REL."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    BHq, Sq, D = q.shape
+    BHkv, Sk, _ = k.shape
+    G = BHq // BHkv
+    kf, vf = k.float()[:, None], v.float()[:, None]
+    qg, og = q.view(BHkv, G, Sq, D), do.view(BHkv, G, Sq, D)
+    lg, dg = lse.view(BHkv, G, Sq, 1), delta.view(BHkv, G, Sq, 1)
+    dq = torch.empty_like(q)
+    bound = torch.zeros(q.shape, device=q.device)
+    dqg, bg = dq.view(BHkv, G, Sq, D), bound.view(BHkv, G, Sq, D)
+    for a in range(0, Sq, TC_ROWS):
+        b = min(Sq, a + TC_ROWS)
+        qa, oa = qg[:, :, a:b].float(), og[:, :, a:b].float()
+        live = attention_mask(b - a, Sk, causal=causal, window=window,
+                              q_offset=q_offset + a, device=q.device)
+        p, ds, ep, eds = _tc_p_ds(qa, oa, kf, vf, lg[:, :, a:b] * LOG2E,
+                                  dg[:, :, a:b], live, scale * LOG2E, scale)
+        dsr = ds.to(torch.bfloat16).float()
+        dqg[:, :, a:b] = torch.matmul(dsr, kf).to(q.dtype)
+        bg[:, :, a:b] = torch.matmul(_spread(ds, eds) + SUM_REL * dsr.abs(),
+                                     kf.abs())
+        del p, ds, dsr, ep, eds
+    return dq, bound
 
 
 def _reference(name, plain, args, kw):
@@ -777,6 +839,9 @@ def _reference(name, plain, args, kw):
     if name == "flash_bwd_dkv" and bf16:
         dk, dv, bk, bv = _flash_dkv_tc_plain(*args, **kw)
         return [dk, dv], [bk, bv]
+    if name == "flash_bwd_dq" and bf16:
+        dq, bound = _flash_dq_tc_plain(*args, **kw)
+        return [dq], [bound]
     ref = list(_tensors([plain(*args, **kw)]))
     return ref, [None] * len(ref)
 
@@ -883,13 +948,9 @@ def _check_flash_bwd(dev):
     """The two flash_bwd kernels against their plain version, dq, dk and
     dv, from the plain forward's lse and delta = sum(out * dout): f32
     within 2e-4 (the JAX kernel tests' tolerance for the gradients); bf16
-    dq (CUDA cores) within one bf16 ulp of its largest magnitude (both sum
-    the same bf16 inputs in f32 in another order, then round once: two
-    values a few f32 ulps apart round at most one bf16 ulp apart, and no
-    element is larger than the largest); bf16 dk and dv (tensor cores)
-    against the plain version that rounds p and ds where the kernel does,
-    within one bf16 ulp plus their bounds (see DOT_REL).  Returns [(dtype,
-    max abs err)]."""
+    dq, dk and dv (tensor cores) against the plain versions that round ds
+    (and p) where the kernels do, within one bf16 ulp plus their bounds
+    (see DOT_REL).  Returns [(dtype, max abs err)]."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fk
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -1570,12 +1631,13 @@ OWN_KERNELS = ("searchsorted_left_ranged_kernel", "searchsorted_left_kernel",
                "chunk_merge_kernel", "knn_chunk_kernel", "knn_merge_kernel",
                "rmsnorm_fwd_kernel", "flash_fwd_kernel", "flash_fwd_tc_kernel",
                "flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel",
-               "flash_bwd_dq_kernel")
+               "flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel")
 # the bf16 LM paths' flash kernels, by route: (tensor-core kernel, CUDA-core
 # kernel it must not run), per wrapper
 TC_ROUTE = {"flash_fwd": ("flash_fwd_tc_kernel", "flash_fwd_kernel"),
             "flash_bwd_dkv": ("flash_bwd_dkv_tc_kernel",
-                              "flash_bwd_dkv_kernel")}
+                              "flash_bwd_dkv_kernel"),
+            "flash_bwd_dq": ("flash_bwd_dq_tc_kernel", "flash_bwd_dq_kernel")}
 
 
 def phase_profile(db, cell, qs, p50_s, **kw):
@@ -2104,7 +2166,8 @@ def phase_lm_train(dev, cfg, sizes, launches, rec):
     if dev.type == "cuda":
         counts = _profile("lm_train_4k", step, p50)
         _check_tc_route("lm/train_4k", counts,
-                        {"flash_fwd": 2 * L, "flash_bwd_dkv": L})
+                        {"flash_fwd": 2 * L, "flash_bwd_dkv": L,
+                         "flash_bwd_dq": L})
     del p, state
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2570,6 +2633,46 @@ def _device_ms(fn, n: int = 10) -> float:
     return sum(a.elapsed_time(b) for a, b in marks) / n
 
 
+def _graph_ms(fn, n: int = 20) -> float:
+    """Device time per call with no host time inside the window: ``n``
+    calls captured in one CUDA graph (the wrappers launch on the current
+    stream, which the capture records), one replay timed with CUDA
+    events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                          # lazy set-up stays out of the capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / n
+    del g
+    return ms
+
+
+def _host_ms(fn, n: int = 20) -> float:
+    """Host time per call: the host clock over ``n`` calls issued back to
+    back after a synchronize (the launch queue has room for them)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
+
+
 def _device_events(prof):
     """The profiler's device-side entries (kernels, memsets, copies); an
     operator's own entry repeats its kernels' time, so it is left out."""
@@ -2706,12 +2809,15 @@ def _bits(ts):
 
 
 def _library_call(name, args, kw):
-    """(label, ms) of one PyTorch call computing the same function on the
-    same inputs, or None.  The flash_bwd kernels' is SDPA's backward."""
+    """(label, ms, fn) of one PyTorch call computing the same function on
+    the same inputs, or None; fn is what ms timed, to time again
+    (``graph_ms``), or None where that is not one closure (SDPA's fastest
+    setup).  The flash_bwd kernels' is SDPA's backward."""
     import torch
     from repro_torch.kernels.dedup_compact import ref as dref
     if name in ("flash_bwd_dkv", "flash_bwd_dq"):
-        return _sdpa_bwd(args, kw)
+        lib = _sdpa_bwd(args, kw)
+        return (*lib, None) if lib else None
     if name in ("segment_spmm", "embedding_bag"):
         return _bag_library(name, args, kw)
     lib = None
@@ -2734,12 +2840,13 @@ def _library_call(name, args, kw):
         lib = "F.rms_norm", lambda: torch.nn.functional.rms_norm(
             x, (x.shape[-1],), scale, kw.get("eps", 1e-6))
     if name == "flash_fwd":
-        return _sdpa_call(args, kw)
-    return (lib[0], _events_ms(lib[1])) if lib else None
+        lib = _sdpa_call(args, kw)
+        return (*lib, None) if lib else None
+    return (lib[0], _events_ms(lib[1]), lib[1]) if lib else None
 
 
 def _bag_library(name, args, kw):
-    """(label, ms) of ``F.embedding_bag`` over the table (or x) with a zero
+    """(label, ms, fn) of ``F.embedding_bag`` over the table (or x) with a zero
     row appended and padding ids sent to it as ``padding_idx`` (for
     segment_spmm in sum mode, followed by ``* norm`` and ``torch.matmul``
     with W, f32 accumulation: three calls).  It counts as the same
@@ -2778,10 +2885,9 @@ def _bag_library(name, args, kw):
         want = sk.segment_spmm(*args, **kw)
     err = _rel_err(fn().float(), want.float())
     if not err <= 1e-5:
-        return f"{label}: not the same function here (rel err {err})", None
-    ms = _events_ms(fn)
-    del padded, safe
-    return f"{label} (rel err {err} to the kernel)", ms
+        return f"{label}: not the same function here (rel err {err})", \
+            None, None
+    return f"{label} (rel err {err} to the kernel)", _events_ms(fn), fn
 
 
 def _sdpa_setups(k4, v4, G):
@@ -2899,6 +3005,35 @@ def _sdpa_bwd(args, kw):
             f"backward minus forward), dq, dk and dv together"), best[1]
 
 
+SHORT_MS = 0.5      # kernel rows timed again without the host (graph_ms)
+
+
+def _host_parts(keys, q):
+    """searchsorted_left's wrapper host time, whole and by part (ms a call,
+    the host clock over 200 calls): its argument checks, the stream lookup
+    (and ``torch.cuda.current_stream``, the query it replaced), the output
+    allocation, and the C call with its launch."""
+    import torch
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.sorted_lookup import kernel as sk
+    out = torch.empty_like(q)
+    fn = _cuda.function("sorted_lookup", "searchsorted_left", None)
+    stream = _cuda.stream_of(keys)
+
+    def checks():
+        sk._check_1d("searchsorted_left", keys=keys, queries=q)
+        _cuda.require_cuda(keys, q)
+    parts = {"wrapper": lambda: sk.searchsorted_left(keys, q),
+             "checks": checks, "stream_of": lambda: _cuda.stream_of(keys),
+             "current_stream": lambda: torch.cuda.current_stream(
+                 keys.device).cuda_stream,
+             "empty_like": lambda: torch.empty_like(q),
+             "c_call": lambda: fn(keys.data_ptr(), keys.shape[0],
+                                  q.data_ptr(), out.data_ptr(), q.shape[0],
+                                  stream)}
+    return {k: _host_ms(f, 200) for k, f in parts.items()}
+
+
 def phase_kernel_report(launches, best):
     import torch
     from repro_torch.kernels.dedup_compact import kernel as dk
@@ -2972,18 +3107,27 @@ def phase_kernel_report(launches, best):
         lib = _library_call(name, args, kw)
         bound_ms, bound_by = _bound(name, args, kw)
         shapes = [tuple(a.shape) for a in _tensors(args)][:3]
+
+        def call():
+            return kern(*args, **kw)
         row = dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(int(n[name]) for n in launches.values()),
             launches_by_path={p: int(n[name]) for p, n in launches.items()},
             max_abs_err=err,
-            ms=_events_ms(lambda: kern(*args, **kw)),
+            ms=_events_ms(call),
             plain_ms=_events_ms(lambda: plain(*args, **kw), n=5),
             bound_ms=bound_ms, bound_by=bound_by,
             library_ms=lib[1] if lib else None,
             library=lib[0] if lib else None,
-            device_ms=_device_ms(lambda: kern(*args, **kw)),
+            device_ms=_device_ms(call),
             shapes=shapes, dtype=str(args[0].dtype))
+        if row["ms"] < SHORT_MS:
+            row.update(graph_ms=_graph_ms(call), host_ms=_host_ms(call),
+                       library_graph_ms=_graph_ms(lib[2]) if lib and lib[2]
+                       else None)
+        if name == "searchsorted_left":
+            row["host_parts_ms"] = _host_parts(*args)
         if name in TC_SHARE:
             row["tc_share_of_tolerance"] = TC_SHARE[name]
         if name == "flash_fwd":
@@ -2996,6 +3140,7 @@ def phase_kernel_report(launches, best):
                        library_causal_4096_ms=lib_ms,
                        library_causal_4096=label)
         rows.append(row)
+        del lib          # a library call may hold a copy of the table
         torch.cuda.empty_cache()
     torch.set_grad_enabled(True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,6 +1,6 @@
 // FlashAttention-2 backward for Hopper (sm_90a): two kernels, dK/dV and dQ.
-// dK/dV runs bf16 inputs on the tensor cores (mma.sync) and float32 inputs
-// on the CUDA cores; dQ runs both dtypes on the CUDA cores.
+// Both run bf16 inputs on the tensor cores (mma.sync) and float32 inputs on
+// the CUDA cores.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py::flash_bwd, its two
 // Pallas TPU kernels (_dkv_kernel, grid (BHkv, Tk, G, Tq), and _dq_kernel,
@@ -50,12 +50,28 @@
 //     and accumulates 4 rows x ceil(D/16) columns; p and ds go through
 //     shared memory; tiles are f32 in shared memory with the rows padded to
 //     an odd stride, so that the 16 key lanes of a warp hit 16 banks.
-//   * dQ, both dtypes (CUDA cores, as dK/dV float32): grid (B*Hq,
-//     ceil(Sq/64)): a block keeps its q and dout tiles and the rows' lse and
-//     delta on chip and loops over the kv tiles that kv_tiles gives
-//     (flash_fwd's bounds); ds goes to shared memory over the v tile once
-//     dp is formed.  Blocks take q tiles from the last down, so the
-//     heaviest rows of a causal mask are scheduled first.
+//   * dQ, both dtypes: grid (B*Hq, ceil(Sq/64)): a block keeps its q and
+//     dout tiles and the rows' lse and delta on chip and loops over the kv
+//     tiles that kv_tiles gives (flash_fwd's bounds).  Blocks take q tiles
+//     from the last down, so the heaviest rows of a causal mask are
+//     scheduled first.
+//   * dQ, bf16 (flash_bwd_dq_tc_kernel): 4 warps, 16 q rows a warp, in the
+//     forward's orientation.  Per 64-key tile, S = Q K^T and dP = dout V^T
+//     on the tensor cores (q and dout as A fragments, k and v as B
+//     fragments), p and ds from them in registers (exp2, scale*log2(e)
+//     folded in, each lane's two rows' lse and delta held in registers for
+//     the whole loop), then dQ += dS K with dS, rounded to bf16, as the A
+//     fragment straight from the dP accumulators and k read by
+//     ldmatrix.trans as the B operand (the forward's P V): only ds is
+//     rounded.  k and v stream through two stages of cp.async.  16 rows a
+//     warp rather than the forward's 32: a 128-row block would hold q and
+//     dout tiles beside the two k/v stages, 139 KB, one block (4 warps) an
+//     SM; 64 rows take ~103 KB, two blocks (8 warps) an SM, and the S, dP
+//     and dQ accumulators of a 64-key step (32 + 32 + 60 floats at D 120)
+//     stay inside 255 registers (no spills, ptxas -v).  dq stays f32 in
+//     registers and is written once: no atomics, the same bits every run.
+//   * dQ, float32 (flash_bwd_dq_kernel, CUDA cores, as dK/dV float32): ds
+//     goes to shared memory over the v tile once dp is formed.
 //   * ragged tails: rows past Sq and keys past Sk are masked (their p is 0)
 //     and not written, so any Sq, Sk >= 1 work (Pallas needs multiples of
 //     the block).  A row with no live key has p = 0 everywhere and
@@ -63,6 +79,8 @@
 // D may be at most 128 (kDMax).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "flash_mma.cuh"
 
@@ -75,31 +93,18 @@ constexpr int kDMax = 128;
 constexpr int kDC = kDMax / 16;    // accumulator columns a thread
 constexpr int kPS = kBK + 1;       // p / ds tile row stride
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 __device__ __forceinline__ bool live(int qp, int kp, int causal, int window) {
   return (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
 }
 
 // rows [0, n) of a contiguous (rows, D) slab into a 64-row f32 tile of row
 // stride DP; rows past n are zero
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
                                           int n, int D, int DP) {
   for (int e = threadIdx.x; e < 64 * D; e += kThreads) {
     const int r = e / D, c = e - r * D;
-    dst[r * DP + c] = r < n ? to_f(src[e]) : 0.f;
+    dst[r * DP + c] = r < n ? src[e] : 0.f;
   }
 }
 
@@ -147,13 +152,14 @@ __host__ __device__ inline int dq_smem_floats(int D) {
   return 3 * t + (t > kBQ * kPS ? t : kBQ * kPS) + 2 * kBQ;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int G, int Sq, int Sk, int D,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int G, int Sq, int Sk, int D,
                      float scale, int causal, int window, int q_offset) {
   extern __shared__ float smem[];
   const int DP = D | 1;
@@ -251,20 +257,19 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < kDC; ++c) {
         const int d = tx + 16 * c;
         if (d < D) {
-          dk[off + d] = from_f<T>(ak[i][c]);
-          dv[off + d] = from_f<T>(av[i][c]);
+          dk[off + d] = ak[i][c];
+          dv[off + d] = av[i][c];
         }
       }
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int G, int Sq, int Sk, int D, float scale, int causal,
                     int window, int q_offset) {
   extern __shared__ float smem[];
@@ -283,8 +288,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nq = min(kBQ, Sq - q0);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const long long row0 = (long long)h * Sq + q0;
-  const T* kh = k + (long long)(h / G) * Sk * D;
-  const T* vh = v + (long long)(h / G) * Sk * D;
+  const float* kh = k + (long long)(h / G) * Sk * D;
+  const float* vh = v + (long long)(h / G) * Sk * D;
   load_tile(Qs, q + row0 * D, nq, D, DP);
   load_tile(Os, dout + row0 * D, nq, D, DP);
   if (tid < kBQ) {
@@ -352,48 +357,46 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     if (r < nq) {
-      T* row = dq + (row0 + r) * D;
+      float* row = dq + (row0 + r) * D;
 #pragma unroll
       for (int c = 0; c < kDC; ++c) {
         const int d = tx + 16 * c;
-        if (d < D) row[d] = from_f<T>(aq[i][c]);
+        if (d < D) row[d] = aq[i][c];
       }
     }
   }
 }
 
-template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                int BHkv, int G, int Sq, int Sk, int D, float scale,
                int causal, int window, int q_offset, cudaStream_t stream) {
   const int bytes = 4 * dkv_smem_floats(D);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((unsigned)BHkv, (unsigned)((Sk + kBK - 1) / kBK));
-  flash_bwd_dkv_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, G, Sq, Sk, D,
-      scale, causal, window, q_offset);
+  flash_bwd_dkv_kernel<<<grid, kThreads, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, G, Sq,
+      Sk, D, scale, causal, window, q_offset);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int BHq, int G,
               int Sq, int Sk, int D, float scale, int causal, int window,
               int q_offset, cudaStream_t stream) {
   const int bytes = 4 * dq_smem_floats(D);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((unsigned)BHq, (unsigned)((Sq + kBQ - 1) / kBQ));
-  flash_bwd_dq_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dq, G, Sq, Sk, D, scale,
+  flash_bwd_dq_kernel<<<grid, kThreads, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dq, G, Sq, Sk, D, scale,
       causal, window, q_offset);
   return (int)cudaGetLastError();
 }
@@ -628,33 +631,252 @@ int launch_dkv_tc(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// the smallest instantiated n8 tile count that covers D
-int launch_dkv_tc_any(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dk, void* dv, int BHkv, int G, int Sq, int Sk,
-                      int D, float scale, int causal, int window,
-                      int q_offset, cudaStream_t s) {
+// f(std::integral_constant<int, NT>{}) for the smallest instantiated n8
+// tile count NT (2, 4, 8, 15, 16) that covers D
+template <typename F>
+int with_nt(int D, F f) {
   const int nt = (D + 7) / 8;
-  if (nt <= 2)
-    return launch_dkv_tc<2>(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
-                            Sk, D, scale, causal, window, q_offset, s);
-  if (nt <= 4)
-    return launch_dkv_tc<4>(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
-                            Sk, D, scale, causal, window, q_offset, s);
-  if (nt <= 8)
-    return launch_dkv_tc<8>(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
-                            Sk, D, scale, causal, window, q_offset, s);
-  if (nt <= 15)
-    return launch_dkv_tc<15>(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
-                             Sk, D, scale, causal, window, q_offset, s);
-  return launch_dkv_tc<16>(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
-                           Sk, D, scale, causal, window, q_offset, s);
+  if (nt <= 2) return f(std::integral_constant<int, 2>{});
+  if (nt <= 4) return f(std::integral_constant<int, 4>{});
+  if (nt <= 8) return f(std::integral_constant<int, 8>{});
+  if (nt <= 15) return f(std::integral_constant<int, 15>{});
+  return f(std::integral_constant<int, 16>{});
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dQ: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kDqWarps = 4;
+constexpr int kDqBQ = 16 * kDqWarps;          // q rows a block, 16 a warp
+constexpr int kDqBK = 64;                     // keys a tile
+constexpr int kDqThreads = 32 * kDqWarps;     // 128
+constexpr int kDqKN = kDqBK / 8;              // n8 tiles of keys
+
+// shared memory of a block in bytes, for a row stride of ST bf16: the q and
+// dout tiles and two stages of (k tile, v tile)
+constexpr int dq_tc_smem_bytes(int ST) {
+  return 2 * (2 * kDqBQ + 4 * kDqBK) * ST;
+}
+
+// One warp's step over a 64-key k/v tile: S = Q K^T and dP = dout V^T for
+// its 16 rows, p = exp2(S scale log2(e) - lse log2(e)) and dS = p (dP -
+// delta) scale in registers, dQ += dS K with dS rounded to bf16 as the A
+// operand.  kMask: test the mask on each pair (tile_class kMasked), else
+// every pair is live (kFull).  Lane (g, c2) holds rows row0 + 8 h (index
+// h = 0, 1) and the keys kc + 8 j + {0, 1} of each n8 tile j; ll[h] and
+// dl[h] are its rows' lse log2(e) and delta.  q_a, o_a: the lane's ldmatrix
+// addresses in the warp's q and dout rows; k_b, v_b: in the stage's k and v
+// tiles as B fragments (Q K^T, dout V^T); k_t: in the k tile as the
+// transposed B fragments of dS K.
+template <int NT, bool kMask>
+__device__ __forceinline__ void dq_tile(float (&dq)[NT][4], uint32_t q_a,
+                                        uint32_t o_a, uint32_t k_b,
+                                        uint32_t v_b, uint32_t k_t,
+                                        const float (&ll)[2],
+                                        const float (&dl)[2], float scale,
+                                        float scale_log2, int row0, int kc,
+                                        int Sq, int Sk, int causal,
+                                        int window, int q_offset) {
+  constexpr int KS = (NT + 1) / 2;
+  constexpr int ST = 16 * KS + 8;
+  float s[kDqKN][4], dp[kDqKN][4];
+#pragma unroll
+  for (int j = 0; j < kDqKN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 1
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t aq[4], ao[4];
+    fm::ldsm_x4(aq, q_a + 32u * kk);
+    fm::ldsm_x4(ao, o_a + 32u * kk);
+#pragma unroll
+    for (int j = 0; j < kDqKN / 2; ++j) {
+      const uint32_t off = 2u * (16 * j * ST + 16 * kk);
+      uint32_t b[4];
+      fm::ldsm_x4(b, k_b + off);
+      fm::mma_bf16(s[2 * j], aq, b[0], b[1]);
+      fm::mma_bf16(s[2 * j + 1], aq, b[2], b[3]);
+      fm::ldsm_x4(b, v_b + off);
+      fm::mma_bf16(dp[2 * j], ao, b[0], b[1]);
+      fm::mma_bf16(dp[2 * j + 1], ao, b[2], b[3]);
+    }
+  }
+  // element (j, e): row row0 + 8 (e / 2), key kc + 8 j + e % 2; a masked
+  // pair's p is 0 (its exponent may be anything, lse of a row with no live
+  // key is NEG_INF)
+#pragma unroll
+  for (int j = 0; j < kDqKN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      bool ok = true;
+      if (kMask) {
+        const int row = row0 + 8 * h, kp = kc + 8 * j + (e & 1);
+        ok = row < Sq && kp < Sk &&
+             fm::live(row + q_offset, kp, causal, window);
+      }
+      const float p = ok ? fm::ex2(s[j][e] * scale_log2 - ll[h]) : 0.f;
+      dp[j][e] = p * (dp[j][e] - dl[h]) * scale;
+    }
+  // dQ += dS K over the tile's 64 keys, dS rounded to bf16 as the A operand
+#pragma unroll
+  for (int j = 0; j < kDqKN / 2; ++j) {
+    uint32_t a[4];
+    fm::c_to_a(a, dp[2 * j], dp[2 * j + 1]);
+    const uint32_t kj = k_t + 2u * 16 * j * ST;
+#pragma unroll
+    for (int n = 0; n < NT / 2; ++n) {
+      uint32_t b[4];
+      fm::ldsm_x4_t(b, kj + 2u * 16 * n);
+      fm::mma_bf16(dq[2 * n], a, b[0], b[1]);
+      fm::mma_bf16(dq[2 * n + 1], a, b[2], b[3]);
+    }
+    if (NT & 1) {
+      uint32_t b[2];
+      fm::ldsm_x2_t(b, kj + 2u * 8 * (NT - 1));
+      fm::mma_bf16(dq[NT - 1], a, b[0], b[1]);
+    }
+  }
+}
+
+template <int NT>                             // n8 tiles of the head dim
+__global__ void __launch_bounds__(kDqThreads, 2)
+flash_bwd_dq_tc_kernel(const fm::bf16* __restrict__ q,
+                       const fm::bf16* __restrict__ k,
+                       const fm::bf16* __restrict__ v,
+                       const fm::bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       fm::bf16* __restrict__ dq, int G, int Sq, int Sk,
+                       int D, float scale, float scale_log2, int causal,
+                       int window, int q_offset, int vec) {
+  constexpr int KS = (NT + 1) / 2;            // k16 steps over the head dim
+  constexpr int DP = 16 * KS;
+  constexpr int ST = DP + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fm::bf16* Qs = reinterpret_cast<fm::bf16*>(smem_raw);
+  fm::bf16* Os = Qs + kDqBQ * ST;
+  fm::bf16* KV = Os + kDqBQ * ST;   // stage s: k at 2 s kDqBK rows, v after
+
+  const int h = blockIdx.x;
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kDqBQ;
+  const int nq = min(kDqBQ, Sq - q0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = q0 + 16 * warp;              // the warp's first row
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const long long row0 = (long long)h * Sq;
+  const fm::bf16* kh = k + (long long)(h / G) * Sk * D;
+  const fm::bf16* vh = v + (long long)(h / G) * Sk * D;
+
+  fm::zero_cols<kDqThreads>(Qs, 2 * kDqBQ + 4 * kDqBK, D, DP, ST);
+  fm::load_tile<kDqThreads>(Qs, q + (row0 + q0) * D, nq, kDqBQ, D, ST, vec);
+  fm::load_tile<kDqThreads>(Os, dout + (row0 + q0) * D, nq, kDqBQ, D, ST,
+                            vec);
+  // the live key range of the block's rows, in whole tiles (kv_tiles)
+  const int qlo = q0 + q_offset, qhi = q0 + nq - 1 + q_offset;
+  const int kbeg = window > 0 ? max(0, qlo - window + 1) : 0;
+  const int kend = causal ? min(Sk, qhi + 1) : Sk;
+  const int t0 = kbeg / kDqBK;
+  const int t1 = kend > kbeg ? (kend + kDqBK - 1) / kDqBK : t0;
+  auto load_kv = [&](int t, int s) {
+    const int k0 = t * kDqBK, n = min(kDqBK, Sk - k0);
+    fm::bf16* Ks = KV + 2 * s * kDqBK * ST;
+    fm::load_tile<kDqThreads>(Ks, kh + (long long)k0 * D, n, kDqBK, D, ST,
+                              vec);
+    fm::load_tile<kDqThreads>(Ks + kDqBK * ST, vh + (long long)k0 * D, n,
+                              kDqBK, D, ST, vec);
+  };
+  if (t0 < t1) load_kv(t0, 0);
+  fm::cp_async_commit();
+
+  // the lane's rows r0 + g and r0 + g + 8: lse log2(e) and delta
+  float ll[2], dl[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + g + 8 * hr;
+    ll[hr] = row < Sq ? lse[row0 + row] * fm::kLog2e : 0.f;
+    dl[hr] = row < Sq ? delta[row0 + row] : 0.f;
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const uint32_t q_a = fm::smem_u32(Qs + 16 * warp * ST + fm::a_off(lane, ST));
+  const uint32_t o_a = fm::smem_u32(Os + 16 * warp * ST + fm::a_off(lane, ST));
+  const uint32_t k_b = fm::smem_u32(KV + fm::b_off(lane, ST));
+  const uint32_t v_b = fm::smem_u32(KV + kDqBK * ST + fm::b_off(lane, ST));
+  const uint32_t k_t = fm::smem_u32(KV + fm::a_off(lane, ST));
+
+  for (int t = t0; t < t1; ++t) {
+    const int s = (t - t0) & 1;
+    if (t + 1 < t1) load_kv(t + 1, s ^ 1);
+    fm::cp_async_commit();
+    fm::cp_async_wait<1>();            // tile t (and q, dout) are in
+    __syncthreads();
+    const int k0 = t * kDqBK;
+    const uint32_t stage = 2u * 2 * s * kDqBK * ST;   // bytes
+    const int cls = fm::tile_class(r0, 16, Sq, k0, kDqBK, Sk, causal, window,
+                                   q_offset);
+    if (cls == fm::kFull)
+      dq_tile<NT, false>(acc, q_a, o_a, k_b + stage, v_b + stage,
+                         k_t + stage, ll, dl, scale, scale_log2, r0 + g,
+                         k0 + c2, Sq, Sk, causal, window, q_offset);
+    else if (cls == fm::kMasked)
+      dq_tile<NT, true>(acc, q_a, o_a, k_b + stage, v_b + stage,
+                        k_t + stage, ll, dl, scale, scale_log2, r0 + g,
+                        k0 + c2, Sq, Sk, causal, window, q_offset);
+    __syncthreads();                   // before tile t + 2 overwrites stage s
+  }
+  fm::cp_async_wait<0>();            // none in flight at exit
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + g + 8 * hr;
+    if (row < Sq) {
+      fm::bf16* drow = dq + (row0 + row) * D;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int c = 8 * n + c2;
+        const float x0 = acc[n][2 * hr], x1 = acc[n][2 * hr + 1];
+        if (c + 1 < D && !(D & 1)) {
+          *reinterpret_cast<__nv_bfloat162*>(drow + c) =
+              __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (c < D) drow[c] = __float2bfloat16_rn(x0);
+          if (c + 1 < D) drow[c + 1] = __float2bfloat16_rn(x1);
+        }
+      }
+    }
+  }
+}
+
+template <int NT>
+int launch_dq_tc(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dq, int BHq, int G, int Sq, int Sk, int D, float scale,
+                 int causal, int window, int q_offset, cudaStream_t stream) {
+  const int bytes = dq_tc_smem_bytes(16 * ((NT + 1) / 2) + 8);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_tc_kernel<NT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = D % 8 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(dout);
+  dim3 grid((unsigned)BHq, (unsigned)((Sq + kDqBQ - 1) / kDqBQ));
+  flash_bwd_dq_tc_kernel<NT><<<grid, kDqThreads, bytes, stream>>>(
+      (const fm::bf16*)q, (const fm::bf16*)k, (const fm::bf16*)v,
+      (const fm::bf16*)dout, (const float*)lse, (const float*)delta,
+      (fm::bf16*)dq, G, Sq, Sk, D, scale, scale * fm::kLog2e, causal,
+      window, q_offset, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core
-// kernel).  q and dout (BHkv * G, Sq, D), k, v, dk, dv
+// dtype: 0 float32 (the CUDA-core kernels), 1 bfloat16 (the tensor-core
+// kernels).  q and dout (BHkv * G, Sq, D), k, v, dk, dv
 // (BHkv, Sk, D), lse and delta (BHkv * G, Sq) float32; all contiguous,
 // 1 <= D <= 128, Sk >= 1.  Writes every element of dk and dv.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -667,10 +889,13 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (D < 1 || D > kDMax || G < 1 || Sq < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
+    return launch_dkv(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
                              Sk, D, scale, causal, window, q_offset, s);
-  return launch_dkv_tc_any(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
-                           Sk, D, scale, causal, window, q_offset, s);
+  return with_nt(D, [&](auto nt) {
+    return launch_dkv_tc<decltype(nt)::value>(q, k, v, dout, lse, delta, dk,
+                                              dv, BHkv, G, Sq, Sk, D, scale,
+                                              causal, window, q_offset, s);
+  });
 }
 
 // The same layout; writes every element of dq (BHq, Sq, D).
@@ -684,8 +909,11 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   if (D < 1 || D > kDMax || G < 1 || Sk < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_dq<float>(q, k, v, dout, lse, delta, dq, BHq, G, Sq, Sk, D,
+    return launch_dq(q, k, v, dout, lse, delta, dq, BHq, G, Sq, Sk, D,
                             scale, causal, window, q_offset, s);
-  return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, BHq, G, Sq,
-                                  Sk, D, scale, causal, window, q_offset, s);
+  return with_nt(D, [&](auto nt) {
+    return launch_dq_tc<decltype(nt)::value>(q, k, v, dout, lse, delta, dq,
+                                             BHq, G, Sq, Sk, D, scale, causal,
+                                             window, q_offset, s);
+  });
 }

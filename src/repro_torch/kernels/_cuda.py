@@ -116,8 +116,15 @@ def function(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
 
 
 def stream_of(t) -> int:
+    """The raw handle of PyTorch's current CUDA stream on ``t``'s device,
+    the stream every kernel launches on (inside ``torch.cuda.graph`` the
+    capture stream).  PyTorch's own raw-stream query, the one its generated
+    kernels make at each launch: ``torch.cuda.current_stream(device)``
+    builds a ``Stream`` object first, which took a fifth of a short
+    wrapper's host time (chip_smoke.py's kernel report times both in
+    ``host_parts_ms``)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def dtype_code(t) -> int:

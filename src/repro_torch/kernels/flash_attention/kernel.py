@@ -17,9 +17,9 @@ pairs and ``ds = p * (dp - delta) * scale``.  Any Sq and Sk >= 1 work (the
 kernels mask the ragged tails; Pallas needs multiples of its blocks), and
 D <= 128.  Each wrapper runs its plain version for CPU tensors and launches
 its kernel for CUDA tensors.  On the card the route is chosen by dtype
-alone: bf16 ``flash_fwd`` and ``flash_bwd_dkv`` run their tensor-core
-kernels (``flash_fwd_tc_kernel``, ``flash_bwd_dkv_tc_kernel``), float32 and
-``flash_bwd_dq`` the CUDA-core ones.
+alone: bf16 inputs run the tensor-core kernels (``flash_fwd_tc_kernel``,
+``flash_bwd_dkv_tc_kernel``, ``flash_bwd_dq_tc_kernel``), float32 the
+CUDA-core ones.
 """
 from __future__ import annotations
 
@@ -33,9 +33,11 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
 BQ = BK = 64            # the CUDA-core kernels' q rows a block, keys a tile
 # the tensor-core kernels (bf16): flash_fwd_tc_kernel's q rows a block, keys
 # a tile and q rows a warp; flash_bwd_dkv_tc_kernel's keys a block, q rows a
-# tile and keys a warp
+# tile and keys a warp; flash_bwd_dq_tc_kernel's q rows a block, keys a tile
+# and q rows a warp
 TC_BQ, TC_BK, TC_WARP_ROWS = 128, 64, 32
 DKV_BK, DKV_BQ, DKV_WARP_KEYS = 64, 64, 16
+DQ_BQ, DQ_BK, DQ_WARP_ROWS = 64, 64, 16
 SKIP, MASKED, FULL = 0, 1, 2    # tile_class
 MAX_D = 128
 PLAIN_ROWS = 1024       # query rows the plain version scores at once

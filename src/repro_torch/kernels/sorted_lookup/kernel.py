@@ -12,8 +12,9 @@ Port of ``repro/kernels/sorted_lookup/kernel.py``:
     flat sorted array, ``count(keys < q)`` (a shard's index block in the
     SPMD probe).
 
-The TPU kernels compare and count over every key; both versions here
-binary-search instead (see the source for why), which gives the same count
+The TPU kernels compare and count over every key; here the ranged kernel
+and both plain versions binary-search, and the flat kernel searches 32-ary
+with one warp a query (see the source for why), which gives the same count
 on sorted keys.  Each wrapper runs the plain version for CPU tensors and
 launches the kernel for CUDA tensors; nothing else.
 """

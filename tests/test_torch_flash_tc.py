@@ -1,10 +1,11 @@
-"""PyTorch port, the tensor-core flash kernels (bf16 ``flash_fwd`` and
-``flash_bwd_dkv``, ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``) as far
-as the CPU can check them.  Their tile loops, mirrored in Python
-(``kv_tiles`` and ``q_tiles`` at these kernels' block sizes, ``tile_class``),
-against the oracle's mask; and their arithmetic, emulated here in plain
-torch step by step as the kernels run it (the online softmax in exp2 units
-over each warp's key steps, p and ds rounded to bf16 before the products),
+"""PyTorch port, the tensor-core flash kernels (bf16 ``flash_fwd``,
+``flash_bwd_dkv`` and ``flash_bwd_dq``, ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu``) as far as the CPU can check them.  Their tile loops,
+mirrored in Python (``kv_tiles`` and ``q_tiles`` at these kernels' block
+sizes, ``tile_class``), against the oracle's mask; and their arithmetic,
+emulated here in plain torch step by step as the kernels run it (the
+online softmax in exp2 units over each warp's key steps, p and ds rounded
+to bf16 before the products),
 against ``chip_smoke.py``'s rounding-matched plain versions within its bf16
 tolerance (one ulp plus a bound of about one ulp), while a result with one
 step left out falls outside it, also at a window of 4,096 keys; and against
@@ -69,11 +70,29 @@ def test_flash_tc_fwd_tiles_cover_the_mask(Sq, Sk, q_offset, causal,
     """flash_fwd_tc_kernel's loops: a q block of TC_BQ rows visits
     ``kv_tiles(bk=TC_BK)`` (at most ceil((window + TC_BQ - 1) / TC_BK) + 1
     under a causal window), every live key of its rows lies in a visited
-    tile, and each warp's 16 rows class each visited tile exactly: SKIP
+    tile, and each warp's 32 rows class each visited tile exactly: SKIP
     where no pair is live, FULL where every pair is (whole rows and keys),
     MASKED otherwise."""
+    _check_kv_tiles(Sq, Sk, q_offset, causal, window, fk.TC_BQ, fk.TC_BK,
+                    fk.TC_WARP_ROWS)
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset,causal,window", [
+    (4096, 4096, 0, True, 4096),      # the training path
+    (300, 1000, 700, True, 0),
+    (200, 200, 0, False, 50),
+    (10, 20, 20, False, 8),
+])
+def test_flash_tc_dq_tiles_cover_the_mask(Sq, Sk, q_offset, causal,
+                                          window):
+    """flash_bwd_dq_tc_kernel's loops: the same, for its q blocks of DQ_BQ
+    rows, DQ_BK-key tiles and warps of DQ_WARP_ROWS rows."""
+    _check_kv_tiles(Sq, Sk, q_offset, causal, window, fk.DQ_BQ, fk.DQ_BK,
+                    fk.DQ_WARP_ROWS)
+
+
+def _check_kv_tiles(Sq, Sk, q_offset, causal, window, BQ, BK, W):
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    BQ, BK, W = fk.TC_BQ, fk.TC_BK, fk.TC_WARP_ROWS
     bound = -(-(window + BQ - 1) // BK) + 1
     width = -(-Sk // BK) * BK
     for q0 in range(0, Sq, BQ):
@@ -239,6 +258,48 @@ def _emulate_dkv(q, k, v, do, lse, delta, *, causal, window, scale,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _emulate_dq(q, k, v, do, lse, delta, *, causal, window, scale,
+                q_offset=0, drop=None):
+    """flash_bwd_dq_tc_kernel's arithmetic: per warp of DQ_WARP_ROWS rows,
+    over its block's kv tiles by class, p = exp2(s c - lse log2 e) and
+    ds = p (dp - delta) scale in f32, dQ += bf16(ds) k in f32.  ``drop``: a
+    (warp's first row, kv tile) step left out."""
+    BHq, Sq, D = q.shape
+    BHkv, Sk, _ = k.shape
+    G = BHq // BHkv
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    c = scale * LOG2E
+    wr = fk.DQ_WARP_ROWS
+    qg, og = q.float().view(BHkv, G, Sq, D), do.float().view(BHkv, G, Sq, D)
+    lg = lse.view(BHkv, G, Sq, 1) * LOG2E
+    dg = delta.view(BHkv, G, Sq, 1)
+    kf, vf = k.float()[:, None], v.float()[:, None]
+    dq = torch.zeros((BHkv, G, Sq, D))
+    for q0 in range(0, Sq, fk.DQ_BQ):
+        tiles = fk.kv_tiles(q0, min(fk.DQ_BQ, Sq - q0), Sk, bk=fk.DQ_BK,
+                            **kw)
+        for r0 in range(q0, min(Sq, q0 + fk.DQ_BQ), wr):
+            rs = slice(r0, min(Sq, r0 + wr))
+            nr = rs.stop - r0
+            for t in tiles:
+                k0 = t * fk.DQ_BK
+                cls = fk.tile_class(r0, wr, Sq, k0, fk.DQ_BK, Sk, **kw)
+                if cls == fk.SKIP or (r0, t) == drop:
+                    continue
+                ks = slice(k0, min(Sk, k0 + fk.DQ_BK))
+                nk = ks.stop - k0
+                live = torch.ones((nr, nk), dtype=torch.bool) \
+                    if cls == fk.FULL else fref.attention_mask(
+                        nr, nk, causal=causal, window=window,
+                        q_offset=q_offset + r0 - k0)
+                s = qg[:, :, rs] @ kf[:, :, ks].transpose(-1, -2)
+                dp = og[:, :, rs] @ vf[:, :, ks].transpose(-1, -2)
+                p = torch.where(live, torch.exp2(s * c - lg[:, :, rs]), 0.0)
+                ds = p * (dp - dg[:, :, rs]) * scale
+                dq[:, :, rs] += ds.bfloat16().float() @ kf[:, :, ks]
+    return dq.view(BHq, Sq, D).to(q.dtype)
+
+
 def _bf16(rng, shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).bfloat16()
@@ -275,6 +336,29 @@ def _dkv_drop(Sq, Sk, kw, k0=0, tile=None):
                 for t in tiles if tile in (None, t) and
                 fk.tile_class(t * fk.DKV_BQ, fk.DKV_BQ, Sq, w0, wk, Sk,
                               **kw) != fk.SKIP)
+
+
+def _dq_drop(Sq, Sk, kw):
+    """The first (warp, kv tile) step of the last q block whose rows see a
+    key."""
+    q0 = (Sq - 1) // fk.DQ_BQ * fk.DQ_BQ
+    tiles = fk.kv_tiles(q0, min(fk.DQ_BQ, Sq - q0), Sk, bk=fk.DQ_BK, **kw)
+    wr = fk.DQ_WARP_ROWS
+    return next((r0, t) for r0 in range(q0, min(Sq, q0 + fk.DQ_BQ), wr)
+                for t in tiles
+                if fk.tile_class(r0, wr, Sq, t * fk.DQ_BK, fk.DQ_BK, Sk,
+                                 **kw) != fk.SKIP)
+
+
+def _share(cs, got, want, bound):
+    """The largest error of ``got`` as a share of its "tc" tolerance (one
+    bf16 ulp plus ``bound``): above 1 where it falls outside."""
+    cs.TC_SHARE.pop("share", None)
+    try:
+        cs._close(got, want, "share", "tc", bound)
+    except AssertionError:
+        pass
+    return cs.TC_SHARE["share"]
 
 
 def _fails(cs, got, want, tols, bounds):
@@ -339,6 +423,27 @@ def test_flash_tc_dkv_rounding_within_tolerance(cs, BHkv, G, Sq, Sk, D,
                   bounds)
 
 
+@pytest.mark.parametrize("BHkv,G,Sq,Sk,D,causal,window,qo", ROUNDING_CASES)
+def test_flash_tc_dq_rounding_within_tolerance(cs, BHkv, G, Sq, Sk, D,
+                                               causal, window, qo):
+    """The emulated dQ kernel against chip_smoke's rounding-matched plain
+    version, from the plain forward's lse and delta: dq within one bf16 ulp
+    plus its bound; with one (warp, kv tile) step dropped, dq falls
+    outside."""
+    rng = np.random.default_rng(Sq + Sk + D)
+    kw = dict(causal=causal, window=window, scale=D ** -0.5, q_offset=qo)
+    args = _dkv_inputs(rng, BHkv, G, Sq, Sk, D, kw)
+    (want,), (bound,) = cs._reference("flash_bwd_dq", fk.flash_bwd_dq_plain,
+                                      args, kw)
+    tol = cs.FLOAT_TOL["flash_bwd_dq"]["bfloat16"]
+    cs._close(_emulate_dq(*args, **kw), want, "emulated flash_bwd_dq",
+              tol[0], bound)
+    drop = _dq_drop(Sq, Sk, dict(causal=causal, window=window,
+                                 q_offset=qo))
+    assert _fails(cs, [_emulate_dq(*args, drop=drop, **kw)], [want], tol,
+                  [bound])
+
+
 @pytest.mark.parametrize("tile", [2, 33, 63])
 def test_flash_tc_fwd_drop_at_window_4096(cs, tile):
     """At the main path's window of 4,096 keys (64 rows that each see 4,096
@@ -382,12 +487,29 @@ def test_flash_tc_dkv_drop_at_window_4096(cs, tile):
     assert _fails(cs, [t[:, rows] for t in dropped], want, tol, bounds)
 
 
+@pytest.mark.parametrize("tile", [2, 33, 63])
+def test_flash_tc_dq_drop_at_window_4096(cs, tile):
+    """At train_4k's reach (64 rows that each see 4,096 keys under a causal
+    window of 4,096, 65 tiles): the emulated dQ kernel stays within the
+    tolerance, and leaving out one tile of one warp, far from the
+    diagonal, fails it by at least 10x."""
+    rng = np.random.default_rng(4098)
+    D, Sk = 120, 4160
+    kw = dict(causal=True, window=4096, scale=D ** -0.5, q_offset=4096)
+    args = _dkv_inputs(rng, 1, 1, 64, Sk, D, kw)
+    (want,), (bound,) = cs._reference("flash_bwd_dq", fk.flash_bwd_dq_plain,
+                                      args, kw)
+    assert _share(cs, _emulate_dq(*args, **kw), want, bound) <= 1
+    assert _share(cs, _emulate_dq(*args, drop=(0, tile), **kw), want,
+                  bound) >= 10
+
+
 def test_flash_tc_rounding_matches_jax(cs):
     """The emulated kernels against the JAX kernels (interpret mode) on the
-    same bf16 inputs: the JAX kernels multiply p and ds in f32, so out, dk
-    and dv may differ by the rounding of those operands, 2**-8 of the sum
-    of the terms' magnitudes (sum p |v| / l, sum |ds| |q|, sum p |dout|),
-    plus one bf16 ulp; lse within 1e-5."""
+    same bf16 inputs: the JAX kernels multiply p and ds in f32, so out, dk,
+    dv and dq may differ by the rounding of those operands, 2**-8 of the
+    sum of the terms' magnitudes (sum p |v| / l, sum |ds| |q|, sum p
+    |dout|, sum |ds| |k|), plus one bf16 ulp; lse within 1e-5."""
     rng = np.random.default_rng(5)
     BHkv, G, S, D = 2, 2, 256, 32
     q, k, v, do = (rng.standard_normal(s).astype(np.float32) for s in (
@@ -408,7 +530,7 @@ def test_flash_tc_rounding_matches_jax(cs):
     jl = torch.from_numpy(np.array(jlse))
     jo = torch.from_numpy(np.array(jout.astype(jnp.float32)))
     delta = torch.sum(jo * t[3].float(), dim=-1)
-    _, jdk, jdv = J_FLASH_BWD(*j[:3], jout, jlse, j[3], **kw)
+    jdq, jdk, jdv = J_FLASH_BWD(*j[:3], jout, jlse, j[3], **kw)
     args = (*t[:3], t[3], jl, delta)
     # sum |ds| |q| and sum p |dout| over the rows each key sees
     qf, kf, vf, of = (x.float() for x in t)
@@ -420,8 +542,11 @@ def test_flash_tc_rounding_matches_jax(cs):
     dk_terms = (ds.abs().transpose(-1, -2) @ qf.view(BHkv, G, S, D).abs()) \
         .sum(1)
     dv_terms = (p.transpose(-1, -2) @ of.view(BHkv, G, S, D).abs()).sum(1)
-    for g, w, terms, name in zip(_emulate_dkv(*args, **kw), (jdk, jdv),
-                                 (dk_terms, dv_terms), ("dk", "dv")):
+    dq_terms = (ds.abs() @ kf[:, None].abs()).view(BHkv * G, S, D)
+    for g, w, terms, name in zip(
+            (*_emulate_dkv(*args, **kw), _emulate_dq(*args, **kw)),
+            (jdk, jdv, jdq), (dk_terms, dv_terms, dq_terms),
+            ("dk", "dv", "dq")):
         w = torch.from_numpy(np.array(w.astype(jnp.float32))).bfloat16()
-        cs._close(g, w, f"emulated flash_bwd_dkv {name} vs JAX", "tc",
+        cs._close(g, w, f"emulated flash_bwd {name} vs JAX", "tc",
                   unit * terms)
