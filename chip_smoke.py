@@ -74,7 +74,8 @@ Phases, each printed on its own line:
      bound and a library call, as one JSON line; a kernel under 0.5 ms and
      its library call are timed again as 20 calls in one CUDA graph
      (``graph_ms``: no host time inside), and its wrapper's host time a
-     call is given (``host_ms``);
+     call is given (``host_ms``; by part, ``host_parts_ms``, for the two
+     ``sorted_lookup`` probes and ``sort_pairs``);
  11. small reference — small stores against plain set computations and a
      numpy k-NN in the kernels' summation order, on one shard and on a
      4-shard mesh.
@@ -363,23 +364,7 @@ def phase_kernel_checks():
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
-    n_cases = 0
-    # -- searchsorted_left_ranged: sorted blocks, clipped/empty windows ------
-    blk, S = 1000, 3
-    keys = np.sort(rng.integers(-2**31, I32MAX, (S, blk)), axis=1)
-    keys[:, -100:] = I32MAX                                # empty slots
-    q = rng.integers(-2**31, I32MAX, 999)
-    q[:8] = [I32MAX, -2**31, 0, keys[0, 0], keys[1, 5], keys[2, -101], -1, 1]
-    shard = rng.integers(0, S, q.shape[0])
-    lo, hi = shard * blk, shard * blk + blk
-    lo[10:20], hi[10:20] = 5, 5                            # empty windows
-    hi[20:30] = lo[20:30] - 7                              # hi < lo
-    lo[30:40], hi[30:40] = -50, S * blk + 50               # clipped
-    args = (t(keys.reshape(-1)), t(q), t(lo), t(hi))
-    _exact(sk.searchsorted_left_ranged(*args),
-           sk.searchsorted_left_ranged_plain(*args),
-           "searchsorted_left_ranged")
-    n_cases += 1
+    n_cases = _check_searchsorted_left_ranged(rng, t)
     # -- expand: deg 0, long spans, padding tiles, a truncated plan --------
     E = 50_000
     pools = [t(rng.integers(-5, 1_000_000, E)) for _ in range(4)]
@@ -489,27 +474,144 @@ def _check_searchsorted_left(rng, t) -> int:
     return len(cases)
 
 
+def _window_queries(rng, keys, a, w):
+    """Queries for the window keys[a:a + w]: the keys at the warp search's
+    first-round probe points, each minus and plus one, the window's ends,
+    the int32 extremes and random ones."""
+    import numpy as np
+    win = keys[a:a + w]
+    pts = [(i + 1) * w // 33 for i in range(32)] if w > 32 else range(w)
+    vals = win[list(pts)].astype(np.int64)
+    ends = np.array([win[0], win[-1]] if w else [], np.int64)
+    qs = np.concatenate([vals, vals - 1, vals + 1, ends, [I32MAX, -2**31],
+                         rng.integers(-2**31, I32MAX, 8)])
+    return np.clip(qs, -2**31, I32MAX)
+
+
+def _check_searchsorted_left_ranged(rng, t) -> int:
+    """searchsorted_left_ranged against its plain version and the library
+    search of each window (given as hi, and as a width where the windows
+    are blocks): shard-major blocks with empty slots, windows of the warp
+    search's edge widths (0, 1, 32, 33, 34, 1089, 1090), runs of equal keys
+    across the probe points of a 16 M-key window, windows clipped at either
+    end, ending at n, hi < lo, all-PAD windows, and the shared planner's
+    many small windows."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.sorted_lookup import kernel as sk
+    cases = []
+    blk, S = 1000, 3                     # the index probe's blocked layout
+    keys = np.sort(rng.integers(-2**31, I32MAX, (S, blk)), axis=1)
+    keys[:, -100:] = I32MAX                                # empty slots
+    q = rng.integers(-2**31, I32MAX, 999)
+    q[:8] = [I32MAX, -2**31, 0, keys[0, 0], keys[1, 5], keys[2, -101], -1, 1]
+    lo = rng.integers(0, S, q.shape[0]) * blk
+    cases.append(("blocks", keys.reshape(-1), q, lo, lo + blk, blk))
+    n = 5000
+    flat = np.sort(rng.integers(-2**31, I32MAX, n))
+    flat[-500:] = I32MAX
+    for w in (0, 1, 32, 33, 34, 1089, 1090):
+        wins = [(17, 17 + w), (-5, w - 5), (n - w, n), (n - w + 7, n + 7),
+                (n - 400, n - 400 + w)]               # the last all PAD
+        qs, lo, hi = [], [], []
+        for a, b in wins:
+            qa = _window_queries(rng, flat, max(a, 0),
+                                 max(0, min(b, n) - max(a, 0)))
+            qs.append(qa)
+            lo.append(np.full(qa.shape, a))
+            hi.append(np.full(qa.shape, b))
+        cases.append((f"windows of width {w}", flat,
+                      *map(np.concatenate, (qs, lo, hi)), None))
+    q = rng.integers(-2**31, I32MAX, 300)
+    lo = rng.integers(-100, n + 100, 300)
+    cases.append(("hi < lo, empty and clipped windows", flat, q, lo,
+                  lo - rng.integers(-20, 20, 300), None))
+    big = 16_000_000                      # one shard's cap_idx
+    keys = np.sort(rng.integers(-2**31, I32MAX, big + 3000))
+    a = 1000
+    for i in range(0, 32, 3):             # runs across the probe points
+        p = a + (i + 1) * big // 33
+        keys[p - 2:p + 3] = keys[p]
+    keys = np.maximum.accumulate(keys)
+    keys[a + big - big // 8:a + big] = I32MAX
+    q = _window_queries(rng, keys, a, big)
+    cases.append(("a 16 M-key window, runs across the probe points", keys, q,
+                  np.full(q.shape, a), np.full(q.shape, a + big), big))
+    gid = np.sort(rng.integers(0, 1 << 24, 442_624))     # the delta probe
+    seg = np.sort(rng.integers(0, 128, 442_624))
+    bounds = np.searchsorted(seg, np.arange(129))
+    order = np.lexsort((gid, seg))
+    gid = gid[order]
+    r = rng.integers(0, 128, 128 * 64)
+    q = np.where(rng.random(r.shape[0]) < 0.5,
+                 gid[np.minimum(bounds[r], len(gid) - 1)],
+                 rng.integers(0, 1 << 24, r.shape[0]))
+    cases.append(("the delta probe's 8,192 small windows", gid, q, bounds[r],
+                  bounds[r + 1], None))
+    for what, keys, qs, lo, hi, width in cases:
+        k, q, lo_t, hi_t = t(keys), t(qs), t(lo), t(hi)
+        got = sk.searchsorted_left_ranged(k, q, lo_t, hi_t)
+        _exact(got, sk.searchsorted_left_ranged_plain(k, q, lo_t, hi_t),
+               f"searchsorted_left_ranged {what}")
+        if width is not None:
+            _exact(sk.searchsorted_left_ranged(k, q, lo_t, width=width), got,
+                   f"searchsorted_left_ranged {what}, as a width")
+        a = torch.clamp(lo_t.long(), min=0)
+        b = torch.maximum(torch.clamp(hi_t.long(), max=k.shape[0]), a)
+        if bool((lo_t == lo_t[0]).all()) and bool((hi_t == hi_t[0]).all()):
+            lib = torch.searchsorted(k[int(a[0]):int(b[0])], q,
+                                     out_int32=True)
+        else:                             # per window, on the host
+            kc, qc, ac, bc = (x.cpu().numpy() for x in (k, q, a, b))
+            lib = t([np.searchsorted(kc[x:y], v) for v, x, y in
+                     zip(qc, ac, bc)])
+        _exact(got, lib, f"searchsorted_left_ranged {what} vs searchsorted")
+    return len(cases)
+
+
 def _check_sort_pairs(rng, t) -> int:
     """sort_pairs against its plain version and the library sort of the
-    packed key: one pair, widths that are not powers of two, equal pairs,
-    ghosts, the int32 extremes, and widths up to 2**20."""
+    packed key: one pair, all pairs equal (no digit varies), one digit
+    varying, only k1 varying, the main path's 442,624 (seg, gid) pairs with
+    99 % ghosts (R, PAD), random full-range pairs (all eight passes), the
+    int32 extremes and negative k1, widths at and around the one-launch
+    threshold, the radix sort's first widths at its tile edges (2,048 k and
+    one either side), and widths up to 2**24, past the point where the
+    histogram blocks reach their cap (the pass blocks the card holds at
+    once: 4,096 keys a block, so 2**22 pairs want 1,024)."""
     import numpy as np
     from repro_torch.kernels.dedup_compact import kernel as dk
     from repro_torch.kernels.dedup_compact import ref as dref
     i32min = -2**31
+    sm = dk.SMALL_MAX
     cases = []
-    for W in (1, 2, 37, 8191, 8192, 8193, 100_003, 196_608, 1 << 20):
+    for W in (1, 2, 37, sm - 1, sm, sm + 1, 8192, 100_003, 196_608, 1 << 20):
         k1 = rng.integers(-50, 50, W)
         k2 = rng.integers(i32min, I32MAX, W, endpoint=True)
         cases.append((f"random W={W}", k1, k2))
-    W = 30_000
-    cases.append(("all pairs equal", np.full(W, 7), np.full(W, -3)))
-    k1 = rng.integers(0, 64, W)
-    k2 = rng.integers(0, 1_000_000, W)
-    ghost = rng.random(W) < 0.5
-    k1[ghost], k2[ghost] = 64, I32MAX                  # (R, PAD) ghosts
-    cases.append(("ghosts (R, PAD)", k1, k2))
-    ext = np.array([i32min, I32MAX, 0, -1, 1])
+    edges = [w for k in range(2, 7) for w in (dk.TILE * k - 1, dk.TILE * k,
+                                              dk.TILE * k + 1) if w > sm]
+    for W in edges + [1 << 22, 1 << 24]:
+        k1 = rng.integers(i32min, I32MAX, W, endpoint=True)
+        k2 = rng.integers(i32min, I32MAX, W, endpoint=True)
+        cases.append((f"full range W={W}", k1, k2))
+    W = 442_624
+    cases.append(("full range (eight passes)",
+                  rng.integers(i32min, I32MAX, W, endpoint=True),
+                  rng.integers(i32min, I32MAX, W, endpoint=True)))
+    for n in (sm + 1, W):
+        cases.append((f"all pairs equal W={n}", np.full(n, 7), np.full(n, -3)))
+    cases.append(("one digit varying", np.full(W, 5),
+                  rng.integers(0, 256, W) << 8))
+    cases.append(("only k1 varying", rng.integers(-40, 40, W),
+                  np.full(W, I32MAX)))
+    for share, n in ((0.5, W), (0.99, W), (0.5, 1 << 22)):
+        k1 = rng.integers(0, 128, n)
+        k2 = rng.integers(0, 14_500_064, n)
+        ghost = rng.random(n) < share
+        k1[ghost], k2[ghost] = 128, I32MAX             # (R, PAD) ghosts
+        cases.append((f"{share:.0%} ghosts (R, PAD) W={n}", k1, k2))
+    ext = np.array([i32min, i32min + 1, I32MAX, I32MAX - 1, 0, -1, 1])
     cases.append(("int32 extremes", rng.choice(ext, 70_001),
                   rng.choice(ext, 70_001)))
     for what, k1, k2 in cases:
@@ -1627,8 +1729,8 @@ def phase_nearest(dev, sizes, n_batches: int, launches, caps_kw=A1_CAPS):
 OWN_KERNELS = ("searchsorted_left_ranged_kernel", "searchsorted_left_kernel",
                "expand_kernel",
                "dedup_compact_rows_kernel", "sort_rows_kernel",
-               "chunk_sort_kernel", "global_step_kernel",
-               "chunk_merge_kernel", "knn_chunk_kernel", "knn_merge_kernel",
+               "small_sort_kernel", "radix_hist_kernel", "radix_pass_kernel",
+               "knn_chunk_kernel", "knn_merge_kernel",
                "rmsnorm_fwd_kernel", "flash_fwd_kernel", "flash_fwd_tc_kernel",
                "flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel",
                "flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel")
@@ -2688,12 +2790,13 @@ def _bound(name, args, kw):
     import math
     import torch
     if name == "searchsorted_left_ranged":
-        keys, q, lo, hi = args
+        keys, q, lo, hi = _ranged_args(args, kw)
         n = keys.shape[0]
         w = (torch.clamp(hi.long(), max=n) - torch.clamp(lo.long(), min=0)
              ).clamp(min=0)
         probes = int(sum(int(x).bit_length() for x in w.tolist()))
-        nbytes, ops = 16 * q.shape[0] + 4 * probes, probes
+        n_in = 4 if len(args) > 3 or kw.get("hi") is not None else 3
+        nbytes, ops = 4 * (n_in * q.shape[0] + probes), probes
     elif name == "searchsorted_left":
         # the same count as the ranged probe's: the keys a binary search
         # must read (one a halving), the queries in, the positions out
@@ -2792,6 +2895,14 @@ def _bound(name, args, kw):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _ranged_args(args, kw):
+    """A searchsorted_left_ranged call's (keys, queries, lo, hi), its
+    windows given as hi or as a width."""
+    keys, q, lo = args[:3]
+    hi = args[3] if len(args) > 3 else kw.get("hi")
+    return keys, q, lo, lo + kw["width"] if hi is None else hi
+
+
 def _live_pairs(Sq, Sk, causal, window, q_offset) -> int:
     """(query, key) pairs a head that the mask leaves live."""
     import numpy as np
@@ -2830,7 +2941,7 @@ def _library_call(name, args, kw):
         lib = "torch.searchsorted", lambda: torch.searchsorted(
             args[0], args[1], out_int32=True)
     if name == "searchsorted_left_ranged":
-        keys, q, lo, hi = args
+        keys, q, lo, hi = _ranged_args(args, kw)
         if bool((lo == lo[0]).all()) and bool((hi == hi[0]).all()):
             blk = keys[int(lo[0]):int(hi[0])]
             lib = "torch.searchsorted, one block", lambda: \
@@ -3008,30 +3119,75 @@ def _sdpa_bwd(args, kw):
 SHORT_MS = 0.5      # kernel rows timed again without the host (graph_ms)
 
 
-def _host_parts(keys, q):
-    """searchsorted_left's wrapper host time, whole and by part (ms a call,
-    the host clock over 200 calls): its argument checks, the stream lookup
-    (and ``torch.cuda.current_stream``, the query it replaced), the output
-    allocation, and the C call with its launch."""
+def _host_parts(name, args, kw):
+    """A short wrapper's host time, whole and by part (ms a call, the host
+    clock over 200 calls, 50 for sort_pairs, so that the launch queue has
+    room for them): its argument checks, the stream lookup (and
+    ``torch.cuda.current_stream``, the query it replaced), the allocation
+    of its outputs (and scratch), and the C call with its launch."""
     import torch
     from repro_torch.kernels import _cuda
+    from repro_torch.kernels.dedup_compact import kernel as dk
     from repro_torch.kernels.sorted_lookup import kernel as sk
-    out = torch.empty_like(q)
-    fn = _cuda.function("sorted_lookup", "searchsorted_left", None)
-    stream = _cuda.stream_of(keys)
+    x = args[0]
+    stream = _cuda.stream_of(x)
+    if name == "sort_pairs":
+        k1, k2 = args
+        W = k1.shape[0]
+        big = W > dk.SMALL_MAX
+        nbytes = dk.radix_scratch_bytes(W) if big else 0
 
-    def checks():
-        sk._check_1d("searchsorted_left", keys=keys, queries=q)
-        _cuda.require_cuda(keys, q)
-    parts = {"wrapper": lambda: sk.searchsorted_left(keys, q),
-             "checks": checks, "stream_of": lambda: _cuda.stream_of(keys),
-             "current_stream": lambda: torch.cuda.current_stream(
-                 keys.device).cuda_stream,
-             "empty_like": lambda: torch.empty_like(q),
-             "c_call": lambda: fn(keys.data_ptr(), keys.shape[0],
-                                  q.data_ptr(), out.data_ptr(), q.shape[0],
-                                  stream)}
-    return {k: _host_ms(f, 200) for k, f in parts.items()}
+        def alloc():
+            buf = torch.empty((2 * W + nbytes // 4,), dtype=torch.int32,
+                              device=x.device)
+            return buf, buf[:2 * W].view(2, W)
+        buf, (o1, o2) = alloc()
+        fn = _cuda.function("sort_pairs", "sort_pairs", None)
+        parts = {
+            "wrapper": lambda: dk.sort_pairs(k1, k2),
+            "checks": lambda: dk._check_pairs(k1, k2),
+            "alloc": alloc,
+            "c_call": lambda: fn(k1.data_ptr(), k2.data_ptr(),
+                                 o1.data_ptr(), o2.data_ptr(),
+                                 buf.data_ptr() + 8 * W if big else None,
+                                 nbytes, W, stream)}
+    elif name == "searchsorted_left_ranged":
+        keys, q, lo, hi = (*args, None)[:4]
+        width = kw.get("width")
+        out = torch.empty_like(q)
+        if hi is None:
+            fn = _cuda.function("sorted_lookup", "searchsorted_left_width",
+                                None)
+            c_args = (lambda: (keys.data_ptr(), keys.shape[0], q.data_ptr(),
+                               lo.data_ptr(), width, out.data_ptr(),
+                               q.shape[0], stream))
+        else:
+            fn = _cuda.function("sorted_lookup", "searchsorted_left_ranged",
+                                None)
+            c_args = (lambda: (keys.data_ptr(), keys.shape[0], q.data_ptr(),
+                               lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
+                               q.shape[0], stream))
+        parts = {
+            "wrapper": lambda: sk.searchsorted_left_ranged(*args, **kw),
+            "checks": lambda: sk._check_ranged(keys, q, lo, hi, width),
+            "alloc": lambda: torch.empty_like(q),
+            "c_call": lambda: fn(*c_args())}
+    else:
+        keys, q = args
+        out = torch.empty_like(q)
+        fn = _cuda.function("sorted_lookup", "searchsorted_left", None)
+        parts = {
+            "wrapper": lambda: sk.searchsorted_left(keys, q),
+            "checks": lambda: sk._check("searchsorted_left", keys, q),
+            "alloc": lambda: torch.empty_like(q),
+            "c_call": lambda: fn(keys.data_ptr(), keys.shape[0],
+                                 q.data_ptr(), out.data_ptr(), q.shape[0],
+                                 stream)}
+    parts.update(stream_of=lambda: _cuda.stream_of(x),
+                 current_stream=lambda: torch.cuda.current_stream(
+                     x.device).cuda_stream)
+    n = 50 if name == "sort_pairs" else 200   # 9 launches a radix sort
+    return {k: _host_ms(f, n) for k, f in parts.items()}
 
 
 def phase_kernel_report(launches, best):
@@ -3126,8 +3282,9 @@ def phase_kernel_report(launches, best):
             row.update(graph_ms=_graph_ms(call), host_ms=_host_ms(call),
                        library_graph_ms=_graph_ms(lib[2]) if lib and lib[2]
                        else None)
-        if name == "searchsorted_left":
-            row["host_parts_ms"] = _host_parts(*args)
+        if name in ("searchsorted_left", "searchsorted_left_ranged",
+                    "sort_pairs"):
+            row["host_parts_ms"] = _host_parts(name, args, kw)
         if name in TC_SHARE:
             row["tc_share_of_tolerance"] = TC_SHARE[name]
         if name == "flash_fwd":

@@ -115,7 +115,7 @@ def searchsorted_blocked(keys, queries, lo, *, block: int, backend: Backend):
     block-relative positions."""
     if backend.is_kernel:
         return _lookup_kernel.searchsorted_left_ranged(keys, queries, lo,
-                                                       lo + block)
+                                                       width=block)
     # reference: binary search of every block, then each query's own block
     S = keys.shape[0] // block
     pos = torch.searchsorted(keys.view(S, block),

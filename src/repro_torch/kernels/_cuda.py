@@ -145,9 +145,10 @@ def check(rc: int, what: str) -> None:
 
 def require_cuda(*tensors) -> None:
     """Every tensor must be on the same CUDA device (a kernel never runs on
-    anything else, and never falls back)."""
-    dev = tensors[0].device
+    anything else, and never falls back).  Reads ``is_cuda`` and the device
+    index, not ``Tensor.device``, which builds an object a tensor."""
+    dev = tensors[0].get_device()
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"kernel inputs must share one CUDA device, got "
                              f"{[str(x.device) for x in tensors]}")

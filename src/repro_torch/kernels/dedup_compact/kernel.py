@@ -3,13 +3,16 @@
 PyTorch versions.
 
 Port of ``repro/kernels/dedup_compact/kernel.py::sort_rows``,
-``::dedup_compact_rows`` and ``::sort_pairs``.  Every version sorts with the
-same ascending-only bitonic network (the plain versions pad to a power of
-two with the largest value; the kernels pad only virtually).  The dedup
-keeps the first of each run of equal non-PAD values, compacted by a prefix
-sum; the pair sort runs the network over one packed int64 key a pair.  The
-wrappers run the plain version for CPU tensors and launch the kernel for
-CUDA tensors.
+``::dedup_compact_rows`` and ``::sort_pairs``.  The row kernels and their
+plain versions sort with the same ascending-only bitonic network (the plain
+versions pad to a power of two with the largest value; the kernels pad only
+virtually); the dedup keeps the first of each run of equal non-PAD values,
+compacted by a prefix sum.  The pair sort packs each pair into one 64-bit
+key and runs a least-significant-digit radix sort over its eight 8-bit
+digits, skipping the digits that are constant over the input (a width up to
+``SMALL_MAX`` takes the kernel's one-block bitonic sort instead: the same
+result).  The wrappers run the plain version for CPU tensors and launch the
+kernel for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -24,8 +27,21 @@ from repro_torch.kernels.dedup_compact.ref import (PAD, compact_sorted,
 # widest row the kernel holds in one block's shared memory (227 KB, less the
 # scan's scratch): 4 bytes a column
 MAX_W = (232_448 - 1_024) // 4
-# widest flat pair sort: the network's comparator indices stay in an int
+# widest flat pair sort: positions stay in an int, and a bucket's count
+# below it fits the 30 bits a look-back word gives it
 MAX_PAIRS = 1 << 30
+# the radix sort's shapes (csrc/sort_pairs.cu): keys a pass tile, keys a
+# histogram block, the most histogram blocks the scratch is sized for (the
+# kernel may use fewer), 8-bit digits
+TILE = 256 * 8
+HIST_KEYS = 1024 * 4
+HIST_MAX_BLOCKS = 1024
+DIGITS, RADIX = 8, 256
+# widths up to SMALL_MAX take the kernel's one-block bitonic sort (one
+# launch, kSmallMax in the source) and need no scratch: on an H100 it took
+# less time a call than the radix sort's nine launches up to 4,096 pairs
+SMALL_MAX = 4096
+_SIGN64 = -2**63
 
 
 def _pow2ceil(n: int) -> int:
@@ -66,10 +82,48 @@ def dedup_compact_rows_plain(x, cap: int):
     return compact_sorted(_bitonic_rows(x), cap)
 
 
+def radix_keys(k1, k2):
+    """The kernel's 64-bit keys as int64 bits: (k1 ^ 2^31) << 32 |
+    (k2 ^ 2^31), whose unsigned order is the pairs' lexicographic order."""
+    return pack_pairs(k1, k2) ^ _SIGN64
+
+
+def radix_digit(key, d: int):
+    """Digit d (bits 8d to 8d + 7) of each key."""
+    return (key >> (8 * d)) & (RADIX - 1)
+
+
+def radix_mask(key) -> int:
+    """The digits that vary over the keys (bit d): the passes that run."""
+    if key.shape[0] == 0:
+        return 0
+    return sum(1 << d for d in range(DIGITS)
+               if not bool((radix_digit(key, d) == radix_digit(
+                   key[:1], d)).all()))
+
+
 def sort_pairs_plain(k1, k2):
-    """The kernel's network over the packed int64 keys of the pairs."""
-    key = pack_pairs(k1, k2)[None, :]
-    return unpack_pairs(_bitonic_rows(key, torch.iinfo(torch.int64).max)[0])
+    """The kernel's radix sort: for each digit that varies, least
+    significant first, a stable reorder of the keys by that digit (what
+    each pass's counting scatter gives)."""
+    key = radix_keys(k1, k2)
+    mask = radix_mask(key)
+    for d in range(DIGITS):
+        if mask >> d & 1:
+            key = key[torch.argsort(radix_digit(key, d), stable=True)]
+    return unpack_pairs(key ^ _SIGN64)
+
+
+def radix_scratch_bytes(W: int) -> int:
+    """Bytes of the radix sort's scratch (``csrc/sort_pairs.cu``'s
+    ``make_layout``): two key buffers, the histogram blocks' counts, a
+    32-word header (a counter, the mask, the tile counters), the digits'
+    bucket totals and the look-back words of the eight passes; sized for
+    HIST_MAX_BLOCKS histogram blocks, the most the kernel uses."""
+    n_tiles = -(-W // TILE)
+    n_hist = min(-(-W // HIST_KEYS), HIST_MAX_BLOCKS)
+    return 16 * W + 4 * (n_hist * DIGITS * RADIX + 32 + DIGITS * RADIX
+                         + DIGITS * n_tiles * RADIX)
 
 
 def _check(x, what: str):
@@ -128,29 +182,49 @@ def dedup_compact_rows(x, cap: int):
     return out, counts
 
 
-def sort_pairs(k1, k2):
-    """Lexicographic ascending sort of flat (k1, k2) i32 pairs; ==
-    ``jax.lax.sort((k1, k2), num_keys=2)``."""
+def _check_pairs(k1, k2) -> bool:
+    """One pass over the inputs: contiguous 1-D int32 tensors of one shape,
+    both on the CPU (True: run the plain version) or on one CUDA device
+    (False); anything else raises."""
     for name, t in (("k1", k1), ("k2", k2)):
-        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+        if t.dtype is not torch.int32 or t.dim() != 1 or \
+                not t.is_contiguous():
             raise ValueError(f"sort_pairs: {name} must be a contiguous 1-D "
                              f"int32 tensor, got {t.dtype} {tuple(t.shape)}")
-    if k1.shape != k2.shape:
+    if k1.shape[0] != k2.shape[0]:
         raise ValueError("sort_pairs: k1 and k2 must have one shape")
-    if k1.device.type == "cpu":
-        return sort_pairs_plain(k1, k2)
+    if k1.is_cpu:
+        return True
     _cuda.require_cuda(k1, k2)
+    if k1.shape[0] > MAX_PAIRS:
+        raise ValueError(f"sort_pairs: {k1.shape[0]} pairs exceed "
+                         f"{MAX_PAIRS}")
+    return False
+
+
+def sort_pairs(k1, k2):
+    """Lexicographic ascending sort of flat (k1, k2) i32 pairs; ==
+    ``jax.lax.sort((k1, k2), num_keys=2)``.  On CUDA the outputs and the
+    radix sort's scratch are one allocation (the outputs are its first 2 W
+    words)."""
+    if _check_pairs(k1, k2):
+        return sort_pairs_plain(k1, k2)
     W = k1.shape[0]
-    if W > MAX_PAIRS:
-        raise ValueError(f"sort_pairs: {W} pairs exceed {MAX_PAIRS}")
-    o1, o2 = torch.empty_like(k1), torch.empty_like(k2)
+    radix = W > SMALL_MAX
+    nbytes = radix_scratch_bytes(W) if radix else 0
+    buf = torch.empty((2 * W + nbytes // 4,), dtype=torch.int32,
+                      device=k1.device)
+    o1, o2 = buf[:2 * W].view(2, W)
     if W == 0:
         return o1, o2
-    buf = torch.empty((W,), dtype=torch.int64, device=k1.device)
-    p, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.function("sort_pairs", "sort_pairs", [p, p, p, p, p, i32, p])
+    fn = _cuda.function("sort_pairs", "sort_pairs", _PAIRS_ARGS)
     rc = fn(k1.data_ptr(), k2.data_ptr(), o1.data_ptr(), o2.data_ptr(),
-            buf.data_ptr(), W, _cuda.stream_of(k1))
+            buf.data_ptr() + 8 * W if radix else None, nbytes, W,
+            _cuda.stream_of(k1))
     _cuda.check(rc, "sort_pairs")
     _cuda.LAUNCHES["sort_pairs"] += 1
     return o1, o2
+
+
+_PAIRS_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_void_p]

@@ -194,7 +194,7 @@ def test_sort_rows_matches_pallas_and_ref(R, W, pallas):
                                       (4099, False)])
 def test_sort_pairs_matches_pallas_and_ref(W, pallas):
     """Pairs with repeats, ghosts (R, PAD) and the int32 extremes: the
-    plain version (the kernel's network over packed keys) and the ref
+    plain version (the kernel's radix passes over packed keys) and the ref
     backend's library sort, against the JAX ref and the Pallas kernel."""
     rng = np.random.default_rng(W)
     k1 = rng.integers(-3, 9, W).astype(np.int32)
