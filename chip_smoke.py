@@ -75,7 +75,11 @@ Phases, each printed on its own line:
      its library call are timed again as 20 calls in one CUDA graph
      (``graph_ms``: no host time inside), and its wrapper's host time a
      call is given (``host_ms``; by part, ``host_parts_ms``, for the two
-     ``sorted_lookup`` probes and ``sort_pairs``);
+     ``sorted_lookup`` probes and ``sort_pairs``); ``knn_topk`` is timed
+     again at its largest one-row call (``at_r1``, the ``nearest_k8/b1``
+     cell) and ``dedup_compact_rows`` at its largest call on the mesh path
+     (``at_mesh``), each with its own bound, and the dedup rows' valid
+     keys and digit passes (``valid_per_row``, ``rows_by_passes``);
  11. small reference — small stores against plain set computations and a
      numpy k-NN in the kernels' summation order, on one shard and on a
      4-shard mesh.
@@ -405,6 +409,7 @@ def phase_kernel_checks():
         raise AssertionError("a row wider than MAX_W was accepted")
     except ValueError:
         pass
+    n_cases += _check_dedup(rng, t)
     n_cases += _check_searchsorted_left(rng, t)
     n_cases += _check_sort_pairs(rng, t)
     n_cases += _check_knn_topk(rng, t)
@@ -420,6 +425,69 @@ def phase_kernel_checks():
             k: {dt: max(e for d, e in v if d == dt) for dt in
                 ("float32", "bfloat16")} for k, v in errs.items()},
         tolerance=FLOAT_TOL, tc_share_of_tolerance=TC_SHARE)
+
+
+def _dedup_rows(rng, W):
+    """Rows of every kind the radix dedup takes: 0 to 4 digit passes, -1 as
+    the smallest value, constant, all-PAD and all-valid rows, 30 % PAD
+    elsewhere."""
+    import numpy as np
+    i32min = -2**31
+
+    def some(lo, hi):
+        return rng.integers(lo, hi, W, endpoint=True)
+    rows = np.stack([
+        some(i32min, I32MAX - 1),                          # 4 passes
+        some(0, 14_500_063),                               # 3: a1-kg gids
+        some(-30_000, 30_000),                             # 2, negative
+        np.where(rng.random(W) < 0.2, -1, some(0, 200)),   # 1, -1 smallest
+        np.full(W, 7),                                     # 0: constant
+        np.full(W, I32MAX),                                # all PAD
+        np.where(rng.random(W) < 0.5, -1, 5),              # -1, then 5
+        some(0, 14_500_063)])                              # all valid
+    pad = rng.random(rows.shape) < 0.3
+    pad[4:] = False
+    rows[pad] = I32MAX
+    return rows
+
+
+def _check_dedup(rng, t) -> int:
+    """dedup_compact_rows against its plain version: widths around one
+    block's 1,024 threads, the switch to them (DEDUP_SMALL_W), a load
+    round (8 keys a thread), the widest row whose two key buffers fit in
+    shared memory whatever its count (and the first that reads the row
+    instead), the main path's 36,866 and MAX_W, each with every row kind;
+    at MAX_W, rows whose valid counts straddle the two buffers' and one
+    buffer's room in shared memory (the scratch rows in use); R = 130 and
+    R = 0; and caps below and past the width."""
+    import numpy as np
+    from repro_torch.kernels.dedup_compact import kernel as dk
+    from repro_torch.kernels.dedup_compact import ref as dref
+    cap2 = dk.dedup_key_cap(dk.MAX_W)              # keys shared memory holds
+    gather = cap2 // 2                             # the widest gathered row
+    widths = [1, 2, 31, 1023, 1024, 1025, dk.DEDUP_SMALL_W,
+              dk.DEDUP_SMALL_W + 1, 8191, 8192, 8193, gather - 1, gather,
+              gather + 1, 36_866, dk.MAX_W]
+    cases = [(f"W={W}", _dedup_rows(rng, W), cap)
+             for W in widths for cap in ((4096, W + 3) if W < 9000 else
+                                         (4096,))]
+    rows = []
+    for n in (cap2 // 2, cap2 // 2 + 1, cap2, cap2 + 1, dk.MAX_W):
+        r = rng.integers(0, 14_500_063, dk.MAX_W)
+        r[rng.permutation(dk.MAX_W)[:dk.MAX_W - n]] = I32MAX
+        rows.append(r)
+    cases.append(("MAX_W, valid counts at the shared-memory edges",
+                  np.stack(rows), 4096))
+    cases.append(("R=130", rng.integers(-5, 3000, (130, 300)), 64))
+    cases.append(("R=0", np.zeros((0, 300)), 64))
+    for what, x, cap in cases:
+        xt = t(x)
+        got = dk.dedup_compact_rows(xt, cap)
+        _exact(got, dk.dedup_compact_rows_plain(xt, cap), f"dedup {what} "
+               f"cap={cap}")
+        _exact(got, dref.dedup_compact_rows(xt, cap), f"dedup {what} "
+               f"cap={cap} vs the ref backend")
+    return len(cases)
 
 
 def _probe_runs(rng, n):
@@ -627,7 +695,10 @@ def _check_knn_topk(rng, t) -> int:
     as bits): k = 1, k > N, N not a multiple of the chunk, nothing visible,
     duplicate embeddings (ties broken by gid), zero embeddings (a -0.0
     product), a type mismatch, create == ts and delete == ts, rows past one
-    row tile, and a k that needs several merge passes."""
+    row tile, a k that needs several merge passes, R = 1, 2, 63, 65 with k
+    on both sides of the warp lists' 32, N = 1, N at tile edges, D not a
+    multiple of 4, entry rows not 16-byte aligned and 4 M entries at R =
+    1."""
     import numpy as np
     import torch
     from repro_torch.kernels.knn_topk import kernel as kk
@@ -670,9 +741,31 @@ def _check_knn_topk(rng, t) -> int:
     cases.append(("create == ts and delete == ts", c, 8))
     cases.append(("130 rows, k=100", case(130, 20_000, 32, 9), 100))
     cases.append(("k=4096", case(3, 60_000, 32, 10), 4096))
+    # the cut by R (warps over entries at R <= 8, over rows past 32), both
+    # list routes (k <= 32 in a warp, larger k in shared memory), tile
+    # edges (256 entries a tile at R <= 8, 128 past it), D not a multiple
+    # of 4 (4-byte copies, zero-padded dims), and a large index at R = 1
+    for R in (1, 2, 63, 65):
+        for k in (8, 32, 33, 100, 4096):
+            cases.append((f"R={R}, k={k}", case(R, 9_000, 32, 100 + R + k),
+                          k))
+    cases.append(("N=1", case(4, 1, 32, 11), 8))
+    for R, te in ((1, 256), (64, 128)):
+        for N in (te - 1, te, te + 1, 3 * te + 1):
+            cases.append((f"R={R}, N={N} (tile edge)",
+                          case(R, N, 32, 12 + N), 8))
+    for D in (5, 12):
+        cases.append((f"D={D}", case(3, 1000, D, 13 + D), 8))
+    cases.append(("R=1, N=4,194,304", case(1, 4_194_304, 32, 14), 8))
+    c = case(2, 3000, 32, 15)
+    c["unaligned"] = True
+    cases.append(("entry rows not 16-byte aligned", c, 8))
     for what, c, k in cases:
         args = [torch.as_tensor(np.ascontiguousarray(c[n], np.float32),
                                 device=dev) for n in ("vecs", "emb")]
+        if c.get("unaligned"):         # the same rows, 4 bytes past 16
+            e = torch.empty(args[1].numel() + 1, device=dev)[1:]
+            args[1] = e.view(args[1].shape).copy_(args[1])
         args += [t(c[n]) for n in ("gid", "vtype", "create", "delete",
                                    "q_vt", "q_ts")]
         got = kk.knn_topk(*args, k)
@@ -1190,6 +1283,7 @@ class Recorder:
                      "flash_bwd_dq": fk, "segment_spmm": ssk,
                      "embedding_bag": ebk}
         self.only = None          # record just these wrappers (None: all)
+        self.extra = {}           # (wrapper, label) -> (size, args, kw)
         self.orig = {n: getattr(m, n) for n, m in self.mods.items()}
         for name, mod in self.mods.items():
             setattr(mod, name, self._wrap(name, self.orig[name]))
@@ -1209,12 +1303,24 @@ class Recorder:
             "segment_spmm": lambda a, kw: a[1].numel() * a[0].shape[1],
             "embedding_bag": lambda a, kw: a[1].numel() * a[0].shape[1]}
 
+    # further calls timed beside the largest: knn_topk's largest one-row
+    # call (nearest_k8/b1) and dedup_compact_rows' largest on the mesh path
+    EXTRA = {"knn_topk": ("r1", lambda a: a[0].shape[0] == 1),
+             "dedup_compact_rows": ("mesh", lambda a: TIMED_PATH[0] ==
+                                    "mesh")}
+
     def _wrap(self, name, fn):
         def rec(*args, **kw):
+            size = None
             if self.only is None or name in self.only:
                 size = self.WORK[name](args, kw)
                 if size >= self.best.get(name, (-1,))[0]:
                     self.best[name] = (size, args, kw)
+            label, want = self.EXTRA.get(name, (None, None))
+            if label and want(args):
+                size = self.WORK[name](args, kw) if size is None else size
+                if size >= self.extra.get((name, label), (-1,))[0]:
+                    self.extra[(name, label)] = (size, args, kw)
             return fn(*args, **kw)
         return rec
 
@@ -1354,6 +1460,7 @@ def _timed(dev, batches, launches, path, **kw):
            else "per_query_peak_bytes")
     lat, results, peak = {}, [], {}
     _cuda.reset_launches()
+    TIMED_PATH[0] = path
     for cell, db, qs in batches:
         planner.reset_stats()
         t0 = time.perf_counter()
@@ -1363,7 +1470,11 @@ def _timed(dev, batches, launches, path, **kw):
         results.append((cell, qs, res))
         peak[cell] = max(peak.get(cell, 0), planner.FRONTIER_STATS[key])
     launches[path] = dict(_cuda.LAUNCHES)
+    TIMED_PATH[0] = None
     return lat, results, peak
+
+
+TIMED_PATH = [None]     # the path whose batches _timed is running
 
 
 def phase_serve(kg, dev, n_batches: int, launches, caps_kw=A1_CAPS):
@@ -3190,7 +3301,39 @@ def _host_parts(name, args, kw):
     return {k: _host_ms(f, n) for k, f in parts.items()}
 
 
-def phase_kernel_report(launches, best):
+def _dedup_input_stats(x):
+    """The valid keys a row (min, median, max) and the rows by digit
+    passes of a dedup_compact_rows input."""
+    import torch
+    from repro_torch.kernels.dedup_compact import kernel as dk
+    n = (x != I32MAX).sum(dim=1).float()
+    passes = dk.dedup_passes(x)
+    return dict(valid_per_row=[float(n.min()), float(n.median()),
+                               float(n.max())],
+                rows_by_passes=torch.bincount(passes, minlength=5).tolist())
+
+
+def _extra_timing(name, kern, plain, args, kw):
+    """One more call of a kernel timed beside its main-path row: equal to
+    its plain version there, its ms / device_ms / graph_ms and its bound."""
+    _exact(_bits(list(_tensors([kern(*args, **kw)]))),
+           _bits(list(_tensors([plain(*args, **kw)]))),
+           f"{name} at its second recorded call")
+
+    def call():
+        return kern(*args, **kw)
+    bound_ms, bound_by = _bound(name, args, kw)
+    row = dict(shapes=[tuple(a.shape) for a in _tensors(args)][:3],
+               ms=_events_ms(call), device_ms=_device_ms(call),
+               bound_ms=bound_ms, bound_by=bound_by)
+    if row["ms"] < SHORT_MS:
+        row["graph_ms"] = _graph_ms(call)
+    if name == "dedup_compact_rows":
+        row.update(_dedup_input_stats(args[0]))
+    return row
+
+
+def phase_kernel_report(launches, best, extra=None):
     import torch
     from repro_torch.kernels.dedup_compact import kernel as dk
     from repro_torch.kernels.edge_expand import kernel as ek
@@ -3287,6 +3430,12 @@ def phase_kernel_report(launches, best):
             row["host_parts_ms"] = _host_parts(name, args, kw)
         if name in TC_SHARE:
             row["tc_share_of_tolerance"] = TC_SHARE[name]
+        if name == "dedup_compact_rows":
+            row.update(_dedup_input_stats(args[0]))
+        for (xname, label), (_, xargs, xkw) in (extra or {}).items():
+            if xname == name:
+                row[f"at_{label}"] = _extra_timing(name, kern, plain, xargs,
+                                                   xkw)
         if name == "flash_fwd":
             # the window mask equals the causal one over the first 4096
             # positions: the fused causal attention's time there
@@ -3367,7 +3516,7 @@ def main(argv=None) -> int:
         phase_lm_train(dev, danube.FULL, LM_FULL, launches, rec)
         phase_zoo(dev, ZOO_FULL, launches, rec)
         rec.restore()
-        phase_kernel_report(launches, rec.best)
+        phase_kernel_report(launches, rec.best, rec.extra)
         phase_small_reference(dev)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

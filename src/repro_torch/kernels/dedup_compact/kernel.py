@@ -3,16 +3,19 @@
 PyTorch versions.
 
 Port of ``repro/kernels/dedup_compact/kernel.py::sort_rows``,
-``::dedup_compact_rows`` and ``::sort_pairs``.  The row kernels and their
-plain versions sort with the same ascending-only bitonic network (the plain
-versions pad to a power of two with the largest value; the kernels pad only
-virtually); the dedup keeps the first of each run of equal non-PAD values,
-compacted by a prefix sum.  The pair sort packs each pair into one 64-bit
-key and runs a least-significant-digit radix sort over its eight 8-bit
-digits, skipping the digits that are constant over the input (a width up to
-``SMALL_MAX`` takes the kernel's one-block bitonic sort instead: the same
-result).  The wrappers run the plain version for CPU tensors and launch the
-kernel for CUDA tensors.
+``::dedup_compact_rows`` and ``::sort_pairs``.  ``sort_rows`` and its plain
+version sort with the same ascending-only bitonic network (the plain
+version pads to a power of two with the largest value; the kernel pads only
+virtually).  ``dedup_compact_rows`` and its plain version drop PAD and sort
+each row's valid keys by a least-significant-digit radix sort of (key -
+row min), 8 bits a pass and only the passes the row's range needs
+(:func:`dedup_passes`); the dedup keeps the first of each run of equal
+values, compacted by a prefix sum.  The pair sort packs each pair into one
+64-bit key and runs a least-significant-digit radix sort over its eight
+8-bit digits, skipping the digits that are constant over the input (a width
+up to ``SMALL_MAX`` takes the kernel's one-block bitonic sort instead: the
+same result).  The wrappers run the plain version for CPU tensors and
+launch the kernel for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -24,8 +27,9 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.dedup_compact.ref import (PAD, compact_sorted,
                                                   pack_pairs, unpack_pairs)
 
-# widest row the kernel holds in one block's shared memory (227 KB, less the
-# scan's scratch): 4 bytes a column
+# widest row: sort_rows holds it in one block's shared memory (227 KB, less
+# the scan's scratch), 4 bytes a column; the dedup kernel's 16-bit digit
+# counts need W below 2**16
 MAX_W = (232_448 - 1_024) // 4
 # widest flat pair sort: positions stay in an int, and a bucket's count
 # below it fits the 30 bits a look-back word gives it
@@ -42,6 +46,12 @@ DIGITS, RADIX = 8, 256
 # less time a call than the radix sort's nine launches up to 4,096 pairs
 SMALL_MAX = 4096
 _SIGN64 = -2**63
+# the dedup kernel's shapes (csrc/dedup_compact.cu): a block's threads (256
+# for rows up to DEDUP_SMALL_W columns), the shared memory a block may use,
+# and the words of reduction scratch beside the digit counts
+DEDUP_THREADS, DEDUP_THREADS_SMALL, DEDUP_SMALL_W = 1024, 256, 2048
+SMEM_MAX = 232_448
+DEDUP_RED = 128
 
 
 def _pow2ceil(n: int) -> int:
@@ -74,12 +84,56 @@ def sort_rows_plain(x):
     return _bitonic_rows(x)
 
 
+def dedup_passes(x):
+    """The digit passes the kernel runs on each row of ``x``: as many 8-bit
+    digits as (max - min) of the row's valid (non-PAD) keys has, 0 for a row
+    with at most one distinct valid key."""
+    valid = x != PAD
+    xl = x.long()
+    mn = torch.where(valid, xl, 2**40).amin(dim=1)
+    mx = torch.where(valid, xl, -2**40).amax(dim=1)
+    span = mx - mn
+    return sum((span >= 256 ** d).long() for d in range(4))
+
+
 def dedup_compact_rows_plain(x, cap: int):
+    """The kernel's algorithm: drop PAD (the valid keys first, in order),
+    then for each digit pass of the row, least significant first, a stable
+    reorder by that digit of (key - row min), then the first-of-run
+    compaction."""
     R, W = x.shape
-    if W == 0:
+    if R == 0 or W == 0:
         return (torch.full((R, cap), PAD, dtype=torch.int32, device=x.device),
                 torch.zeros((R,), dtype=torch.int32, device=x.device))
-    return compact_sorted(_bitonic_rows(x), cap)
+    valid = x != PAD
+    passes = dedup_passes(x)
+    mn = torch.where(valid, x.long(), 2**40).amin(dim=1, keepdim=True)
+    o = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+    xs, valid = x.gather(1, o), valid.gather(1, o)
+    for d in range(int(passes.max())):
+        run = (passes > d)[:, None] & valid
+        digit = torch.where(run, ((xs.long() - mn) >> (8 * d)) & (RADIX - 1),
+                            torch.where(valid, 0, RADIX))
+        o = torch.argsort(digit, dim=1, stable=True)
+        xs, valid = xs.gather(1, o), valid.gather(1, o)
+    return compact_sorted(xs, cap)
+
+
+def dedup_key_cap(W: int) -> int:
+    """Keys a dedup block holds in shared memory (csrc ``key_cap``): what is
+    left of ``fixed_bytes`` + 8 W, at most SMEM_MAX, after the per-warp digit
+    counts, the bucket starts and the scratch words."""
+    threads = DEDUP_THREADS_SMALL if W <= DEDUP_SMALL_W else DEDUP_THREADS
+    fixed = threads // 32 * RADIX * 2 + RADIX * 4 + DEDUP_RED * 4
+    return (min(fixed + 8 * W, SMEM_MAX) - fixed) // 4
+
+
+def dedup_scratch_words(R: int, W: int) -> int:
+    """Words of the dedup kernel's scratch: none when two buffers of W keys
+    fit in shared memory, else a row of W for the second buffer, and
+    another when one buffer of W does not fit either."""
+    cap = dedup_key_cap(W)
+    return 0 if 2 * W <= cap else R * W * (1 if W <= cap else 2)
 
 
 def radix_keys(k1, k2):
@@ -161,25 +215,31 @@ def sort_rows(x):
 
 def dedup_compact_rows(x, cap: int):
     """(R, W) candidates (PAD = invalid) -> ((R, cap) sorted-unique regions,
-    (R,) unique counts before the cap)."""
+    (R,) unique counts before the cap).  On CUDA the outputs and the
+    kernel's scratch are one allocation."""
     _check(x, "dedup_compact_rows")
     if x.device.type == "cpu":
         return dedup_compact_rows_plain(x, cap)
     _cuda.require_cuda(x)
     R, W = x.shape
     _check_width(W, "dedup_compact_rows")
-    out = torch.empty((R, cap), dtype=torch.int32, device=x.device)
-    counts = torch.empty((R,), dtype=torch.int32, device=x.device)
+    n_scratch = dedup_scratch_words(R, W)
+    buf = torch.empty((R * cap + R + n_scratch,), dtype=torch.int32,
+                      device=x.device)
+    out, counts = buf[:R * cap].view(R, cap), buf[R * cap:R * cap + R]
     if R == 0:
         return out, counts
-    p, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.function("dedup_compact", "dedup_compact_rows",
-                        [p, p, p, i32, i32, i32, i32, p])
-    rc = fn(x.data_ptr(), out.data_ptr(), counts.data_ptr(), R, W,
-            _pow2ceil(W), cap, _cuda.stream_of(x))
+    fn = _cuda.function("dedup_compact", "dedup_compact_rows", _DEDUP_ARGS)
+    rc = fn(x.data_ptr(), out.data_ptr(), counts.data_ptr(),
+            buf.data_ptr() + 4 * (R * cap + R), n_scratch, R, W, cap,
+            _cuda.stream_of(x))
     _cuda.check(rc, "dedup_compact_rows")
     _cuda.LAUNCHES["dedup_compact_rows"] += 1
     return out, counts
+
+
+_DEDUP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + \
+    [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _check_pairs(k1, k2) -> bool:

@@ -247,7 +247,8 @@ def assert_knn_close(got, want):
 @pytest.mark.parametrize("R,N,D,k,seed,pallas", [
     (1, 83, 12, 15, 4, True),           # the pinned case of queue 3
     (4, 37, 5, 8, 1, False), (3, 5, 4, 16, 2, False),     # k > N: padding
-    (70, 300, 8, 1, 3, False)])         # rows past one row tile, k = 1
+    (70, 300, 8, 1, 3, False),          # rows past one row tile, k = 1
+    (1, 700, 32, 8, 5, False)])         # one row: warps over entries
 def test_knn_topk_matches_pallas_and_ref(R, N, D, k, seed, pallas):
     args = _knn_inputs(R, N, D, seed)
     got = kk.knn_topk(*map(torch.as_tensor, args), k)
@@ -262,20 +263,64 @@ def test_knn_topk_matches_pallas_and_ref(R, N, D, k, seed, pallas):
     assert torch.equal(ref[1], got[1])
 
 
-@pytest.mark.parametrize("R,N,D,k", [(64, 4_194_304, 32, 8), (1, 1, 1, 1),
-                                     (128, 100_003, 32, 4096), (3, 0, 4, 2)])
+_PLAN_CASES = [(64, 4_194_304, 32, 8), (1, 1, 1, 1), (128, 100_003, 32, 4096),
+               (3, 0, 4, 2)]
+_PLAN_CASES += [(R, N, D, k) for R in (1, 8, 64, 130)
+                for k in (1, 8, 32, 33, 4096)
+                for N, D in ((4_194_304, 32), (100_003, 12), (1, 4), (0, 8))
+                if (R, N, D, k) not in _PLAN_CASES]
+
+
+@pytest.mark.parametrize("R,N,D,k", _PLAN_CASES)
 def test_knn_plan_covers_the_index(R, N, D, k):
-    """The kernel's cut of a call: chunks that cover the index in whole
-    tiles, row tiles and merge groups within shared memory."""
+    """The kernel's cut of a call: k <= 32 takes the warp-held lists (8
+    rows a warp, a list a row a warp over entries; the warps over rows
+    follow R), larger k the shared-memory lists (1 row a warp, a list a row
+    a chunk); chunks of whole tiles cover the index in about one wave of
+    blocks; shared memory and the merge's lists fit."""
     pl = kk.plan(R, N, D, k)
-    assert pl["chunk"] % kk.TILE == 0
+    warp = k <= kk.WARP_K
+    we = kk.WARPS // pl["wr"]
+    assert pl["route"] == ("warp" if warp else "shared")
+    assert pl["rw"] == (8 if warp else 1)
+    assert pl["te"] == 32 * pl["et"] * we
+    assert pl["rows"] == pl["wr"] * pl["rw"]
+    assert pl["lists"] == (we if warp else 1)
+    if warp:       # few rows spread the warps over entries, many over rows
+        assert pl["rows"] >= min(R, 64) and (R > 8 or pl["wr"] == 1)
+        assert pl["et"] * we == max(4, we)
+    assert pl["chunk"] % pl["te"] == 0
     assert pl["n_chunks"] * pl["chunk"] >= N > (pl["n_chunks"] - 1) * \
         pl["chunk"] or N == pl["n_chunks"] == 0
-    assert pl["smem"] <= kk.SMEM_MAX and pl["kp"] >= k
-    assert 1 <= pl["rt"] <= kk.MAX_ROWS and pl["group"] >= 2
+    blocks = pl["n_chunks"] * -(-R // pl["rows"])   # one wave
+    target = kk.target_blocks(pl["smem"])
+    assert kk.SMS <= target <= kk.SMS * kk.MAX_BLOCKS_SM
+    assert blocks <= target + -(-R // pl["rows"])
+    if N >= 1_000_000:
+        assert blocks >= target // 2
+    assert pl["n_lists"] == pl["n_chunks"] * pl["lists"]
+    assert pl["smem"] == kk.chunk_smem(D, k, pl["wr"]) <= kk.SMEM_MAX
+    assert pl["kp"] >= k and pl["group"] >= 2
     assert 8 * pl["group"] * pl["kp"] <= kk.SMEM_MAX
     with pytest.raises(ValueError):
         kk.plan(R, N, D, kk.MAX_K + 1)
+
+
+def test_knn_python_mirrors_the_source():
+    """The plan's copies of the kernel's constants and its shared-memory
+    count agree with ``csrc/knn_topk.cu``."""
+    src = (ROOT / "src" / "repro_torch" / "csrc" / "knn_topk.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert kk.WARPS == const("kThreads") // 32
+    assert kk.STAGES == const("kStages")
+    assert kk.WARP_K == const("kWarpK")
+    body = re.search(r"long long chunk_smem\(.*?\n}", src, re.S).group(0)
+    assert "4 * rows * D4 + kStages * te * (4LL * DS + 16)" in body
+    assert "rows * (8LL * m + 12)) + 8 * rows" in body
+    assert "__launch_bounds__(kThreads, 2)\n    knn_chunk_kernel" in src
+    assert kk.MAX_BLOCKS_SM == 2
 
 
 def test_wrappers_take_cpu_or_cuda_only():
