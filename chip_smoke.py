@@ -77,9 +77,11 @@ Phases, each printed on its own line:
      call is given (``host_ms``; by part, ``host_parts_ms``, for the two
      ``sorted_lookup`` probes and ``sort_pairs``); ``knn_topk`` is timed
      again at its largest one-row call (``at_r1``, the ``nearest_k8/b1``
-     cell) and ``dedup_compact_rows`` at its largest call on the mesh path
-     (``at_mesh``), each with its own bound, and the dedup rows' valid
-     keys and digit passes (``valid_per_row``, ``rows_by_passes``);
+     cell) and ``dedup_compact_rows`` and ``sort_rows`` at their largest
+     calls on the mesh path (``at_mesh``), each with its own bound, and
+     the radix rows' valid keys and digit passes (``valid_per_row``,
+     ``rows_by_passes``); ``segment_spmm`` adds a second bound,
+     ``gathered_ms`` (x's row read once an id), and its share of ``ms``;
  11. small reference — small stores against plain set computations and a
      numpy k-NN in the kernels' summation order, on one shard and on a
      4-shard mesh.
@@ -410,6 +412,7 @@ def phase_kernel_checks():
     except ValueError:
         pass
     n_cases += _check_dedup(rng, t)
+    n_cases += _check_sort_rows(rng, t)
     n_cases += _check_searchsorted_left(rng, t)
     n_cases += _check_sort_pairs(rng, t)
     n_cases += _check_knn_topk(rng, t)
@@ -451,33 +454,47 @@ def _dedup_rows(rng, W):
     return rows
 
 
-def _check_dedup(rng, t) -> int:
-    """dedup_compact_rows against its plain version: widths around one
-    block's 1,024 threads, the switch to them (DEDUP_SMALL_W), a load
-    round (8 keys a thread), the widest row whose two key buffers fit in
-    shared memory whatever its count (and the first that reads the row
-    instead), the main path's 36,866 and MAX_W, each with every row kind;
-    at MAX_W, rows whose valid counts straddle the two buffers' and one
-    buffer's room in shared memory (the scratch rows in use); R = 130 and
-    R = 0; and caps below and past the width."""
+def _radix_widths():
+    """The widths at the radix routine's edges: around one block's 1,024
+    threads, the switch to them (DEDUP_SMALL_W), a load round (8 keys a
+    thread), the widest row whose two key buffers fit in shared memory
+    whatever its count (and the first that reads the row instead), the
+    main path's 8,192 and 36,866, and MAX_W."""
+    from repro_torch.kernels.dedup_compact import kernel as dk
+    gather = dk.dedup_key_cap(dk.MAX_W) // 2       # the widest gathered row
+    return [1, 2, 31, 1023, 1024, 1025, dk.DEDUP_SMALL_W,
+            dk.DEDUP_SMALL_W + 1, 8191, 8192, 8193, gather - 1, gather,
+            gather + 1, 36_866, dk.MAX_W]
+
+
+def _smem_edge_rows(rng):
+    """MAX_W rows of gids whose valid counts straddle the two key buffers'
+    and one buffer's room in shared memory (past them the buffers are
+    global rows)."""
     import numpy as np
     from repro_torch.kernels.dedup_compact import kernel as dk
-    from repro_torch.kernels.dedup_compact import ref as dref
     cap2 = dk.dedup_key_cap(dk.MAX_W)              # keys shared memory holds
-    gather = cap2 // 2                             # the widest gathered row
-    widths = [1, 2, 31, 1023, 1024, 1025, dk.DEDUP_SMALL_W,
-              dk.DEDUP_SMALL_W + 1, 8191, 8192, 8193, gather - 1, gather,
-              gather + 1, 36_866, dk.MAX_W]
-    cases = [(f"W={W}", _dedup_rows(rng, W), cap)
-             for W in widths for cap in ((4096, W + 3) if W < 9000 else
-                                         (4096,))]
     rows = []
     for n in (cap2 // 2, cap2 // 2 + 1, cap2, cap2 + 1, dk.MAX_W):
         r = rng.integers(0, 14_500_063, dk.MAX_W)
         r[rng.permutation(dk.MAX_W)[:dk.MAX_W - n]] = I32MAX
         rows.append(r)
+    return np.stack(rows)
+
+
+def _check_dedup(rng, t) -> int:
+    """dedup_compact_rows against its plain version and the ref backend:
+    the radix routine's edge widths, each with every row kind; the
+    shared-memory edge rows (the scratch rows in use); R = 130 and R = 0;
+    and caps below and past the width."""
+    import numpy as np
+    from repro_torch.kernels.dedup_compact import kernel as dk
+    from repro_torch.kernels.dedup_compact import ref as dref
+    cases = [(f"W={W}", _dedup_rows(rng, W), cap)
+             for W in _radix_widths() for cap in ((4096, W + 3) if W < 9000
+                                                  else (4096,))]
     cases.append(("MAX_W, valid counts at the shared-memory edges",
-                  np.stack(rows), 4096))
+                  _smem_edge_rows(rng), 4096))
     cases.append(("R=130", rng.integers(-5, 3000, (130, 300)), 64))
     cases.append(("R=0", np.zeros((0, 300)), 64))
     for what, x, cap in cases:
@@ -487,6 +504,54 @@ def _check_dedup(rng, t) -> int:
                f"cap={cap}")
         _exact(got, dref.dedup_compact_rows(xt, cap), f"dedup {what} "
                f"cap={cap} vs the ref backend")
+    return len(cases)
+
+
+def _merge_layout(rng, Q, Bmax, F):
+    """(Q, Bmax * F) rows as ``planner._merge_rows`` builds them: Bmax
+    sorted-unique runs of gids a row, each run padded to F with PAD, the
+    second run sharing some gids with the first."""
+    import numpy as np
+    rows = np.full((Q, Bmax, F), I32MAX, np.int64)
+    for q in range(Q):
+        first = None
+        for b in range(Bmax):
+            g = rng.integers(0, 14_500_063, int(rng.integers(0, F + 1)))
+            if first is not None and first.size:
+                g[:g.size // 2] = rng.choice(first, g.size // 2)
+            g = np.unique(g)[:F]
+            rows[q, b, :g.size] = g
+            first = g
+    return rows.reshape(Q, Bmax * F)
+
+
+def _check_sort_rows(rng, t) -> int:
+    """sort_rows against its plain version, torch.sort and the ref backend,
+    bit for bit: every _dedup_rows kind at the radix routine's edge widths;
+    the shared-memory edge rows (past one buffer's room the first buffer is
+    the output row); rows of Bmax sorted-unique runs (the _merge_rows
+    layout) at 64 x 2 x 4,096 and 4 x 3 x 100; R = 130, R = 0 and W = 0."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.dedup_compact import kernel as dk
+    from repro_torch.kernels.dedup_compact import ref as dref
+    cases = [(f"W={W}", _dedup_rows(rng, W)) for W in _radix_widths()]
+    cases += [("MAX_W, valid counts at the shared-memory edges",
+               _smem_edge_rows(rng)),
+              ("the merge layout, 64 x 2 x 4096", _merge_layout(rng, 64, 2,
+                                                                4096)),
+              ("the merge layout, 4 x 3 x 100", _merge_layout(rng, 4, 3,
+                                                              100)),
+              ("R=130", rng.integers(-5, 3000, (130, 300))),
+              ("R=0", np.zeros((0, 300))), ("W=0", np.zeros((3, 0)))]
+    for what, x in cases:
+        xt = t(x)
+        got = dk.sort_rows(xt)
+        _exact(got, dk.sort_rows_plain(xt), f"sort_rows {what}")
+        _exact(got, torch.sort(xt, dim=1).values,
+               f"sort_rows {what} vs torch.sort")
+        _exact(got, dref.sort_rows(xt), f"sort_rows {what} vs the ref "
+               "backend")
     return len(cases)
 
 
@@ -1304,10 +1369,12 @@ class Recorder:
             "embedding_bag": lambda a, kw: a[1].numel() * a[0].shape[1]}
 
     # further calls timed beside the largest: knn_topk's largest one-row
-    # call (nearest_k8/b1) and dedup_compact_rows' largest on the mesh path
+    # call (nearest_k8/b1), dedup_compact_rows' and sort_rows' largest on
+    # the mesh path
     EXTRA = {"knn_topk": ("r1", lambda a: a[0].shape[0] == 1),
              "dedup_compact_rows": ("mesh", lambda a: TIMED_PATH[0] ==
-                                    "mesh")}
+                                    "mesh"),
+             "sort_rows": ("mesh", lambda a: TIMED_PATH[0] == "mesh")}
 
     def _wrap(self, name, fn):
         def rec(*args, **kw):
@@ -1837,14 +1904,34 @@ def phase_nearest(dev, sizes, n_batches: int, launches, caps_kw=A1_CAPS):
                           caps=caps, **kw)
 
 
-OWN_KERNELS = ("searchsorted_left_ranged_kernel", "searchsorted_left_kernel",
-               "expand_kernel",
-               "dedup_compact_rows_kernel", "sort_rows_kernel",
-               "small_sort_kernel", "radix_hist_kernel", "radix_pass_kernel",
-               "knn_chunk_kernel", "knn_merge_kernel",
-               "rmsnorm_fwd_kernel", "flash_fwd_kernel", "flash_fwd_tc_kernel",
-               "flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel",
-               "flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel")
+def _global_names(csrc: str) -> frozenset:
+    """The names of the ``__global__`` functions in the CUDA sources
+    (``*.cu``, ``*.cuh``) under ``csrc``."""
+    import glob
+    import re
+    names = set()
+    for path in sorted(glob.glob(os.path.join(csrc, "*.cu*"))):
+        with open(path) as f:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                r"(\w+)\s*[(<]", f.read()))
+    return frozenset(names)
+
+
+# every kernel of the port, by its name in the sources: PROFILE's "own
+# kernels ms" sums the device events whose name is one of them
+OWN_KERNELS = _global_names(os.path.join(ROOT, "src", "repro_torch", "csrc"))
+
+
+def _is_own(key: str) -> bool:
+    """A profiler event's key names one of the port's kernels: as a whole
+    word of the demangled name (namespace, template and argument types
+    around it) or as a length-prefixed name of a mangled one."""
+    import re
+    words = set(re.findall(r"\w+", key))
+    return any(k in words or f"{len(k)}{k}" in key for k in OWN_KERNELS)
+
+
 # the bf16 LM paths' flash kernels, by route: (tensor-core kernel, CUDA-core
 # kernel it must not run), per wrapper
 TC_ROUTE = {"flash_fwd": ("flash_fwd_tc_kernel", "flash_fwd_kernel"),
@@ -1875,8 +1962,7 @@ def _profile(cell, fn, p50_s, **extra):
         wall_s = time.perf_counter() - t0
     kern = _device_events(prof)
     busy_us = sum(e.self_device_time_total for e in kern)
-    own_us = sum(e.self_device_time_total for e in kern
-                 if any(k in e.key for k in OWN_KERNELS))
+    own_us = sum(e.self_device_time_total for e in kern if _is_own(e.key))
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -3301,9 +3387,27 @@ def _host_parts(name, args, kw):
     return {k: _host_ms(f, n) for k, f in parts.items()}
 
 
+# the kernels of the radix routine, whose rows report their inputs' valid
+# keys and digit passes
+RADIX_ROWS = ("dedup_compact_rows", "sort_rows")
+
+
+def _gathered_ms(args) -> float:
+    """segment_spmm's second bound: x's row read once for every
+    non-padding id (no row found in the L2 again), the ids, W and norm
+    read once and the output written once, over the card's memory rate."""
+    x, ids, w, norm = args
+    (R, K), D, es = ids.shape, x.shape[1], x.element_size()
+    d_out = D if w is None else w.shape[1]
+    nnz = int((ids >= 0).sum())
+    nbytes = (nnz * D + R * d_out) * es + 4 * R * K + \
+        (0 if w is None else w.numel() * es) + (0 if norm is None else 4 * R)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def _dedup_input_stats(x):
     """The valid keys a row (min, median, max) and the rows by digit
-    passes of a dedup_compact_rows input."""
+    passes of a dedup_compact_rows or sort_rows input."""
     import torch
     from repro_torch.kernels.dedup_compact import kernel as dk
     n = (x != I32MAX).sum(dim=1).float()
@@ -3328,7 +3432,7 @@ def _extra_timing(name, kern, plain, args, kw):
                bound_ms=bound_ms, bound_by=bound_by)
     if row["ms"] < SHORT_MS:
         row["graph_ms"] = _graph_ms(call)
-    if name == "dedup_compact_rows":
+    if name in RADIX_ROWS:
         row.update(_dedup_input_stats(args[0]))
     return row
 
@@ -3430,8 +3534,11 @@ def phase_kernel_report(launches, best, extra=None):
             row["host_parts_ms"] = _host_parts(name, args, kw)
         if name in TC_SHARE:
             row["tc_share_of_tolerance"] = TC_SHARE[name]
-        if name == "dedup_compact_rows":
+        if name in RADIX_ROWS:
             row.update(_dedup_input_stats(args[0]))
+        if name == "segment_spmm":
+            row["gathered_ms"] = _gathered_ms(args)
+            row["gathered_share"] = row["gathered_ms"] / row["ms"]
         for (xname, label), (_, xargs, xkw) in (extra or {}).items():
             if xname == name:
                 row[f"at_{label}"] = _extra_timing(name, kern, plain, xargs,

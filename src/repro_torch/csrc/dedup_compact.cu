@@ -11,97 +11,50 @@
 // slot 0 being compared with -1 (as the TPU kernel does): a row whose
 // smallest value is -1 does not count it.
 //
-// sort_rows: an ascending-only bitonic network over a virtual width W2 (the
-// next power of two), one block a row, the row resident in shared memory.
-// Only ascending comparators are used (the first step of every merge
-// compares i with its mirror i ^ (k-1)), and with every slot at or past W
-// holding the largest value, a comparator whose upper slot is >= W never
-// moves anything, so those slots are neither stored nor touched and a
-// 36,866-column row needs 4*W bytes, not the 256 KB of W2.  It takes
-// log2(W2)*(log2(W2)+1)/2 steps, each behind a block barrier.
-//
-// dedup_compact_rows: a least-significant-digit radix sort of the row's
-// valid keys, one block a row.  What bounds it: the row is read once and
-// cap + 1 words written, a bytes bound of ~6 us for the main path's
-// 128 x 36,866 call; what costs time is the passes over the row, each a
-// chain of barriers and shared-memory traffic.  The bitonic network this
-// replaced crossed shared memory ~136 times a row (0.414 ms on an H100);
-// the radix sort does it a handful of times:
+// Both are one routine, radix_sort_row: a least-significant-digit radix
+// sort of the row's valid keys, one block a row, then a last step of their
+// own.  What bounds them: the row is read once and W (sort) or cap + 1
+// (dedup) words written, a bytes bound of ~1.3 us for the star merge's
+// 64 x 8,192 sort and ~6 us for the hop wave's 128 x 36,866 dedup; what
+// costs time is the passes over the row, each a chain of barriers and
+// shared-memory traffic.  The bitonic networks this replaced crossed shared
+// memory log2(W2) (log2(W2) + 1) / 2 times a row (91 at 8,192 columns, 136
+// at 36,866); the radix sort does it a handful of times:
 //   1. one read of the row gives the valid keys' count, min and max (block
-//      reductions); PAD never reaches the output, so it is dropped here.
-//      The valid keys are also gathered into shared memory, as far as half
-//      of it (one atomic a warp a load round; their order does not matter,
-//      equal keys being equal bits).
+//      reductions); PAD is not sorted but counted: it sorts last and all
+//      its copies are equal bits, so the sort writes W - n PAD words after
+//      the n sorted valid keys, and the dedup drops them.  The valid keys
+//      are also gathered into shared memory, as far as half of it (one
+//      atomic a warp a load round; their order does not matter in a
+//      keys-only sort, equal keys being equal bits).
 //   2. the digit passes sort (key - min) as unsigned 32-bit values, 8 bits a
 //      pass, only as many passes as max - min needs: none for a row with at
-//      most one distinct key, three for the a1-kg gids (below 2^24).  A pass
-//      is one stable counting scatter with three block barriers (see
-//      radix_pass): warp-contiguous segments, per-warp 16-bit digit counts
-//      (16 KB for 32 warps), a scan of the 256 bucket totals, and a write of
-//      32 keys at a time ranked by eight ballots.  The passes ping-pong
-//      between two buffers and end in the first, A.  Both lie in shared
-//      memory when 2n keys fit (n <= 26,816 with 1,024 threads), the
-//      gathered keys being the first pass's input; else B, then A too, is a
-//      row of a scratch buffer the wrapper allocates with the outputs
-//      (L2-resident at the main path's 18.9 MB), and the first pass reads
-//      the row itself, which keeps the passes that scatter into global
-//      memory to floor(passes / 2).
-//   3. the first of each run of equal keys is marked (-1 before slot 0),
-//      each warp counts its segment's, one scan over the warps, and each
-//      warp writes its firsts below cap; PAD fills the rest.
-// One block a row needs no grid-wide wait.  Rows up to 2,048 columns take a
-// block of 256 threads, wider ones 1,024.  The routine (radix_pass and the
-// buffer rule) is written for one row of keys so that sort_rows can take
-// it over.
+//      most one distinct key, three for the a1-kg gids (below 2^24), four
+//      when the valid keys span more than 2^24.  A pass is one stable
+//      counting scatter with three block barriers (see radix_pass):
+//      warp-contiguous segments, per-warp 16-bit digit counts (16 KB for 32
+//      warps), a scan of the 256 bucket totals, and a write of 32 keys at a
+//      time ranked by eight ballots.  The passes ping-pong between two
+//      buffers and end in the first, A.  Both lie in shared memory when 2n
+//      keys fit (n <= 26,816 with 1,024 threads), the gathered keys being
+//      the first pass's input; else B, then A too, is a row in global
+//      memory the caller gives (B: a scratch row the wrapper allocates with
+//      the outputs; A: another for the dedup, the output row itself for the
+//      sort), L2-resident at the main path's sizes, and the first pass
+//      reads the row itself, which keeps the passes that scatter into
+//      global memory to floor(passes / 2).
+//   3. sort_radix_kernel writes A[0, n) and then PAD into [n, W) (a row of
+//      one distinct key: n copies of it).  dedup_radix_kernel marks the
+//      first of each run of equal keys (-1 before slot 0), each warp counts
+//      its segment's, one scan over the warps, and each warp writes its
+//      firsts below cap; PAD fills the rest.
+// One launch a call and one block a row: no grid-wide wait, no allocation.
+// Rows up to 2,048 columns take a block of 256 threads, wider ones 1,024.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kPad = 0x7fffffff;
-
-__device__ __forceinline__ int ilog2(int x) { return 31 - __clz(x); }
-
-// Ascending bitonic network over the virtual width w2 (a power of two >= w);
-// slots >= w are virtual PAD and never stored.
-__device__ void bitonic_sort_shared(int* s, int w, int w2) {
-  const int half = w2 >> 1;
-  const int n_cmp = half < w ? half : w;   // comparator c has its lower slot >= c
-  for (int k = 2; k <= w2; k <<= 1) {
-    for (int j = k >> 1; j >= 1; j >>= 1) {
-      const int lj = ilog2(j);
-      const bool mirror = j == (k >> 1);
-      for (int c = threadIdx.x; c < n_cmp; c += blockDim.x) {
-        const int i = ((c >> lj) << (lj + 1)) | (c & (j - 1));
-        const int p = mirror ? (i ^ (k - 1)) : (i + j);
-        if (p < w) {
-          const int a = s[i], b = s[p];
-          if (a > b) { s[i] = b; s[p] = a; }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-__device__ void load_row(int* s, const int* __restrict__ xr, int w) {
-  for (int i = threadIdx.x; i < w; i += blockDim.x) s[i] = xr[i];
-  __syncthreads();
-}
-
-__global__ void sort_rows_kernel(const int* __restrict__ x,
-                                 int* __restrict__ out, int w, int w2) {
-  extern __shared__ int s[];
-  const long long r = blockIdx.x;
-  load_row(s, x + r * w, w);
-  bitonic_sort_shared(s, w, w2);
-  int* o = out + r * w;
-  for (int i = threadIdx.x; i < w; i += blockDim.x) o[i] = s[i];
-}
-
-// ---------------------------------------------------------------------------
-// dedup_compact_rows: a block radix sort of each row's valid keys
-// ---------------------------------------------------------------------------
-
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDedupThreads = 1024;      // a block's threads (one block a row)
 constexpr int kDedupThreadsSmall = 256;  // ... for rows up to kDedupSmallW
@@ -223,24 +176,43 @@ __device__ void radix_pass(const int* src, int n_src, int* dst, unsigned mn,
   __syncthreads();
 }
 
+// A block's shared memory: fixed_bytes(blockDim.x), then key_cap words for
+// keys.
+struct Smem {
+  unsigned short* hist;   // per-warp digit counts
+  unsigned* start;        // the 256 bucket starts
+  int* red;               // kRed words of reduction and scan scratch
+  int* keys;              // key_cap words
+};
 
-// One block a row.  Shared memory: fixed_bytes(blockDim.x), then key_cap
-// words for keys.  scratch: [R][w] words, then (when w > key_cap) another
-// [R][w], for key buffers that do not fit in shared memory.
-__global__ void __launch_bounds__(kDedupThreads)
-dedup_radix_kernel(const int* __restrict__ x, int* __restrict__ out,
-                   int* __restrict__ counts, int* __restrict__ scratch, int R,
-                   int w, int cap, int key_cap) {
-  extern __shared__ __align__(16) unsigned char dsm[];
+__device__ __forceinline__ Smem carve(unsigned char* dsm) {
+  Smem s;
+  s.hist = (unsigned short*)dsm;
+  s.start = (unsigned*)(dsm + (blockDim.x >> 5) * kRadix * 2);
+  s.red = (int*)(s.start + kRadix);
+  s.keys = s.red + kRed;
+  return s;
+}
+
+// A row's valid keys after radix_sort_row: a[0, n) ascending when passes >
+// 0; with passes == 0 the n valid keys are all mn (a is not set).
+struct SortedRow {
+  const int* a;
+  int n, mn, passes;
+};
+
+// Steps 1 and 2 of the header on row xr (w columns): the valid keys' count,
+// min and max, and the digit passes into buffer A.  A and B lie in shared
+// memory when they fit, else in the global rows a_glob and b_glob (w words
+// each; a_glob is used only when n > key_cap, b_glob only when 2n >
+// key_cap).  Ends behind a block barrier.
+__device__ SortedRow radix_sort_row(const int* __restrict__ xr, int w,
+                                    const Smem& s, int key_cap, int* a_glob,
+                                    int* b_glob) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int warps = blockDim.x >> 5;
-  unsigned short* hist = (unsigned short*)dsm;
-  unsigned* start = (unsigned*)(dsm + warps * kRadix * 2);
-  int* red = (int*)(start + kRadix);
-  int* keys = red + kRed;
-  const long long r = blockIdx.x;
-  const int* xr = x + r * w;
-  int* o = out + r * cap;
+  int* red = s.red;
+  int* keys = s.keys;
 
   // 1. one read of the row: the valid keys' count, min and max; the valid
   //    keys are also gathered into shared memory (in any order: equal keys
@@ -301,45 +273,95 @@ dedup_radix_kernel(const int* __restrict__ x, int* __restrict__ out,
     }
   }
   __syncthreads();
-  n = red[96];
-  mn = red[97];
+  SortedRow row;
+  row.a = nullptr;
+  row.n = n = red[96];
+  row.mn = mn = red[97];
   mx = red[98];
   // digit passes: as many as the bits of max - min need (none for a row
   // with at most one distinct valid key)
   const unsigned range = (unsigned)mx - (unsigned)mn;
   const int passes = n == 0 || range == 0 ? 0 : (39 - __clz(range)) >> 3;
-  if (passes == 0) {
-    const int total = n > 0 && mn != -1 ? 1 : 0;
-    for (int i = tid; i < cap; i += blockDim.x) o[i] = i < total ? mn : kPad;
-    if (tid == 0) counts[r] = total;
-    return;
-  }
+  row.passes = passes;
+  if (passes == 0) return row;
 
   // 2. the passes, least significant digit first, ping-ponging between A
   //    and B so that the last one writes A.  A and B lie in shared memory
-  //    when they fit (both for most rows), else in the scratch rows (L2).
+  //    when they fit (both for most rows), else in the global rows (L2).
   const bool gather = n <= room;
   int *A, *B;
   if (gather) {            // the gathered keys, keys[0, n), are pass 0's source
     A = (passes & 1) ? keys + n : keys;
     B = (passes & 1) ? keys : keys + n;
   } else {
-    A = n <= key_cap ? keys : scratch + ((long long)R + r) * w;
-    B = 2 * n <= key_cap ? keys + n : scratch + r * w;
+    A = n <= key_cap ? keys : a_glob;
+    B = 2 * n <= key_cap ? keys + n : b_glob;
   }
   const int* src = gather ? ((passes & 1) ? B : A) : xr;
   for (int p = 0; p < passes; ++p) {
     int* dst = ((passes - 1 - p) & 1) ? B : A;
     if (p == 0 && !gather)
-      radix_pass<true>(src, w, dst, (unsigned)mn, 0, hist, start, red);
+      radix_pass<true>(src, w, dst, (unsigned)mn, 0, s.hist, s.start, red);
     else
-      radix_pass<false>(src, n, dst, (unsigned)mn, 8 * p, hist, start, red);
+      radix_pass<false>(src, n, dst, (unsigned)mn, 8 * p, s.hist, s.start,
+                        red);
     src = dst;
   }
+  row.a = A;
+  return row;
+}
+
+// Sort every row: scratch holds [R][w] words for B when two key buffers of
+// w keys do not fit in shared memory; A's global row is the output row.
+__global__ void __launch_bounds__(kDedupThreads)
+sort_radix_kernel(const int* __restrict__ x, int* __restrict__ out,
+                  int* __restrict__ scratch, int w, int key_cap) {
+  extern __shared__ __align__(16) unsigned char dsm[];
+  const int tid = threadIdx.x;
+  const long long r = blockIdx.x;
+  int* o = out + r * w;
+  const SortedRow row = radix_sort_row(x + r * w, w, carve(dsm), key_cap, o,
+                                       scratch + r * w);
+  // 3. the sorted valid keys (unless A is the output row), then PAD
+  if (row.passes == 0) {
+    for (int i = tid; i < w; i += blockDim.x) o[i] = i < row.n ? row.mn : kPad;
+    return;
+  }
+  if (row.a != o)
+    for (int i = tid; i < row.n; i += blockDim.x) o[i] = row.a[i];
+  for (int i = row.n + tid; i < w; i += blockDim.x) o[i] = kPad;
+}
+
+// Dedup/compact every row: scratch holds [R][w] words for B, then (when w >
+// key_cap) another [R][w] for A, for key buffers that do not fit in shared
+// memory.
+__global__ void __launch_bounds__(kDedupThreads)
+dedup_radix_kernel(const int* __restrict__ x, int* __restrict__ out,
+                   int* __restrict__ counts, int* __restrict__ scratch, int R,
+                   int w, int cap, int key_cap) {
+  extern __shared__ __align__(16) unsigned char dsm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
+  const long long r = blockIdx.x;
+  const Smem s = carve(dsm);
+  int* red = s.red;
+  int* o = out + r * cap;
+  const SortedRow row = radix_sort_row(x + r * w, w, s, key_cap,
+                                       scratch + ((long long)R + r) * w,
+                                       scratch + r * w);
+  const int n = row.n;
+  if (row.passes == 0) {
+    const int total = n > 0 && row.mn != -1 ? 1 : 0;
+    for (int i = tid; i < cap; i += blockDim.x) o[i] = i < total ? row.mn : kPad;
+    if (tid == 0) counts[r] = total;
+    return;
+  }
+  const int* A = row.a;
 
   // 3. the first of each run of equal keys (-1 before slot 0), compacted:
   //    each warp counts the firsts of its segment, one scan over the warps,
   //    then each warp writes its firsts below cap
+  const unsigned lt = lanemask_lt();
   const int seg = (n + (int)blockDim.x - 1) / (int)blockDim.x * 32;
   const int lo = min(n, warp * seg), hi = min(n, lo + seg);
   int mine = 0;
@@ -381,9 +403,21 @@ dedup_radix_kernel(const int* __restrict__ x, int* __restrict__ out,
   if (tid == 0) counts[r] = total;
 }
 
-int threads_for(int w2) {
-  const int t = w2 >> 1;
-  return t >= 1024 ? 1024 : (t < 32 ? 32 : t);
+// A launch's shape for rows of w columns: threads, dynamic shared memory
+// (fixed_bytes + room for two buffers of w keys, at most kSmemMax) and the
+// keys that room holds.
+struct Launch {
+  int threads, bytes, key_cap;
+};
+
+Launch launch_for(int w) {
+  Launch l;
+  l.threads = w <= kDedupSmallW ? kDedupThreadsSmall : kDedupThreads;
+  const int fixed = fixed_bytes(l.threads);
+  const long long want = fixed + 8LL * w;
+  l.bytes = (int)(want < kSmemMax ? want : kSmemMax);
+  l.key_cap = (l.bytes - fixed) / 4;
+  return l;
 }
 
 cudaError_t shared_limit(const void* fn, int bytes) {
@@ -394,14 +428,20 @@ cudaError_t shared_limit(const void* fn, int bytes) {
 
 }  // namespace
 
-extern "C" int sort_rows(const void* x, void* out, int n_rows, int w, int w2,
+// Sort every row of x (n_rows x w) into out.  scratch holds scratch_words
+// words: 0 when two key buffers of w keys fit in shared memory, else
+// n_rows * w; less returns cudaErrorInvalidValue.
+extern "C" int sort_rows(const void* x, void* out, void* scratch,
+                         long long scratch_words, int n_rows, int w,
                          void* stream) {
-  const int bytes = w * (int)sizeof(int);
-  cudaError_t err = shared_limit((const void*)sort_rows_kernel, bytes);
+  const Launch l = launch_for(w);
+  const long long need = 2LL * w <= l.key_cap ? 0 : (long long)n_rows * w;
+  if (need > scratch_words) return (int)cudaErrorInvalidValue;
+  cudaError_t err = shared_limit((const void*)sort_radix_kernel, l.bytes);
   if (err != cudaSuccess) return (int)err;
   if (n_rows > 0)
-    sort_rows_kernel<<<n_rows, threads_for(w2), bytes, (cudaStream_t)stream>>>(
-        (const int*)x, (int*)out, w, w2);
+    sort_radix_kernel<<<n_rows, l.threads, l.bytes, (cudaStream_t)stream>>>(
+        (const int*)x, (int*)out, (int*)scratch, w, l.key_cap);
   return (int)cudaGetLastError();
 }
 
@@ -412,19 +452,15 @@ extern "C" int sort_rows(const void* x, void* out, int n_rows, int w, int w2,
 extern "C" int dedup_compact_rows(const void* x, void* out, void* counts,
                                   void* scratch, long long scratch_words,
                                   int n_rows, int w, int cap, void* stream) {
-  const int threads = w <= kDedupSmallW ? kDedupThreadsSmall : kDedupThreads;
-  const int fixed = fixed_bytes(threads);
-  const long long want = fixed + 8LL * w;
-  const int bytes = (int)(want < kSmemMax ? want : kSmemMax);
-  const int key_cap = (bytes - fixed) / 4;
-  const long long need =
-      2LL * w <= key_cap ? 0 : (long long)n_rows * w * (w <= key_cap ? 1 : 2);
+  const Launch l = launch_for(w);
+  const long long need = 2LL * w <= l.key_cap
+      ? 0 : (long long)n_rows * w * (w <= l.key_cap ? 1 : 2);
   if (need > scratch_words) return (int)cudaErrorInvalidValue;
-  cudaError_t err = shared_limit((const void*)dedup_radix_kernel, bytes);
+  cudaError_t err = shared_limit((const void*)dedup_radix_kernel, l.bytes);
   if (err != cudaSuccess) return (int)err;
   if (n_rows > 0)
-    dedup_radix_kernel<<<n_rows, threads, bytes, (cudaStream_t)stream>>>(
+    dedup_radix_kernel<<<n_rows, l.threads, l.bytes, (cudaStream_t)stream>>>(
         (const int*)x, (int*)out, (int*)counts, (int*)scratch, n_rows, w, cap,
-        key_cap);
+        l.key_cap);
   return (int)cudaGetLastError();
 }

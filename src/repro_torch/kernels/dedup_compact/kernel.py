@@ -3,19 +3,19 @@
 PyTorch versions.
 
 Port of ``repro/kernels/dedup_compact/kernel.py::sort_rows``,
-``::dedup_compact_rows`` and ``::sort_pairs``.  ``sort_rows`` and its plain
-version sort with the same ascending-only bitonic network (the plain
-version pads to a power of two with the largest value; the kernel pads only
-virtually).  ``dedup_compact_rows`` and its plain version drop PAD and sort
-each row's valid keys by a least-significant-digit radix sort of (key -
-row min), 8 bits a pass and only the passes the row's range needs
-(:func:`dedup_passes`); the dedup keeps the first of each run of equal
-values, compacted by a prefix sum.  The pair sort packs each pair into one
-64-bit key and runs a least-significant-digit radix sort over its eight
-8-bit digits, skipping the digits that are constant over the input (a width
-up to ``SMALL_MAX`` takes the kernel's one-block bitonic sort instead: the
-same result).  The wrappers run the plain version for CPU tensors and
-launch the kernel for CUDA tensors.
+``::dedup_compact_rows`` and ``::sort_pairs``.  ``sort_rows`` and
+``dedup_compact_rows`` run one routine, as do their plain versions
+(:func:`sort_rows_plain`): drop PAD and sort each row's valid keys by a
+least-significant-digit radix sort of (key - row min), 8 bits a pass and
+only the passes the row's range needs (:func:`dedup_passes`).  The sort
+then writes PAD after the valid keys (PAD sorts last and its copies are
+equal bits, so this is ``torch.sort``'s result); the dedup keeps the first
+of each run of equal values, compacted by a prefix sum.  The pair sort
+packs each pair into one 64-bit key and runs a least-significant-digit
+radix sort over its eight 8-bit digits, skipping the digits that are
+constant over the input (a width up to ``SMALL_MAX`` takes the kernel's
+one-block bitonic sort instead: the same result).  The wrappers run the
+plain version for CPU tensors and launch the kernel for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -27,9 +27,9 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.dedup_compact.ref import (PAD, compact_sorted,
                                                   pack_pairs, unpack_pairs)
 
-# widest row: sort_rows holds it in one block's shared memory (227 KB, less
-# the scan's scratch), 4 bytes a column; the dedup kernel's 16-bit digit
-# counts need W below 2**16
+# widest row of sort_rows and dedup_compact_rows: the radix routine's
+# 16-bit per-warp digit counts need W below 2**16 (the value is the width
+# the earlier row-resident sort held in one block's shared memory)
 MAX_W = (232_448 - 1_024) // 4
 # widest flat pair sort: positions stay in an int, and a bucket's count
 # below it fits the 30 bits a look-back word gives it
@@ -46,48 +46,19 @@ DIGITS, RADIX = 8, 256
 # less time a call than the radix sort's nine launches up to 4,096 pairs
 SMALL_MAX = 4096
 _SIGN64 = -2**63
-# the dedup kernel's shapes (csrc/dedup_compact.cu): a block's threads (256
-# for rows up to DEDUP_SMALL_W columns), the shared memory a block may use,
-# and the words of reduction scratch beside the digit counts
+# the radix routine's shapes (csrc/dedup_compact.cu, both kernels): a
+# block's threads (256 for rows up to DEDUP_SMALL_W columns), the shared
+# memory a block may use, and the words of reduction scratch beside the
+# digit counts
 DEDUP_THREADS, DEDUP_THREADS_SMALL, DEDUP_SMALL_W = 1024, 256, 2048
 SMEM_MAX = 232_448
 DEDUP_RED = 128
 
 
-def _pow2ceil(n: int) -> int:
-    return 1 << max(0, int(n) - 1).bit_length()
-
-
-def _bitonic_rows(x, pad=PAD):
-    """Ascending-only bitonic network along axis 1 (the kernels' network);
-    ``pad`` must be the dtype's largest value."""
-    R, W = x.shape
-    W2 = _pow2ceil(W)
-    if W2 > W:
-        x = torch.cat([x, torch.full((R, W2 - W), pad, dtype=x.dtype,
-                                     device=x.device)], dim=1)
-    idx = torch.arange(W2, device=x.device)
-    k = 2
-    while k <= W2:
-        j = k // 2
-        while j >= 1:
-            partner = idx ^ (k - 1) if j == k // 2 else idx ^ j
-            px = x[:, partner]
-            x = torch.where(idx < partner, torch.minimum(x, px),
-                            torch.maximum(x, px))
-            j //= 2
-        k *= 2
-    return x[:, :W]
-
-
-def sort_rows_plain(x):
-    return _bitonic_rows(x)
-
-
 def dedup_passes(x):
-    """The digit passes the kernel runs on each row of ``x``: as many 8-bit
-    digits as (max - min) of the row's valid (non-PAD) keys has, 0 for a row
-    with at most one distinct valid key."""
+    """The digit passes the radix routine (sort and dedup) runs on each row
+    of ``x``: as many 8-bit digits as (max - min) of the row's valid
+    (non-PAD) keys has, 0 for a row with at most one distinct valid key."""
     valid = x != PAD
     xl = x.long()
     mn = torch.where(valid, xl, 2**40).amin(dim=1)
@@ -96,15 +67,14 @@ def dedup_passes(x):
     return sum((span >= 256 ** d).long() for d in range(4))
 
 
-def dedup_compact_rows_plain(x, cap: int):
-    """The kernel's algorithm: drop PAD (the valid keys first, in order),
-    then for each digit pass of the row, least significant first, a stable
-    reorder by that digit of (key - row min), then the first-of-run
-    compaction."""
+def sort_rows_plain(x):
+    """The kernels' shared routine (the sort's whole algorithm): drop PAD
+    (the valid keys first, in order), then for each digit pass of the row,
+    least significant first, a stable reorder by that digit of (key - row
+    min); PAD stays last."""
     R, W = x.shape
     if R == 0 or W == 0:
-        return (torch.full((R, cap), PAD, dtype=torch.int32, device=x.device),
-                torch.zeros((R,), dtype=torch.int32, device=x.device))
+        return x.clone()
     valid = x != PAD
     passes = dedup_passes(x)
     mn = torch.where(valid, x.long(), 2**40).amin(dim=1, keepdim=True)
@@ -116,13 +86,24 @@ def dedup_compact_rows_plain(x, cap: int):
                             torch.where(valid, 0, RADIX))
         o = torch.argsort(digit, dim=1, stable=True)
         xs, valid = xs.gather(1, o), valid.gather(1, o)
-    return compact_sorted(xs, cap)
+    return xs
+
+
+def dedup_compact_rows_plain(x, cap: int):
+    """The kernel's algorithm: the radix sort of the valid keys, then the
+    first-of-run compaction."""
+    R, W = x.shape
+    if R == 0 or W == 0:
+        return (torch.full((R, cap), PAD, dtype=torch.int32, device=x.device),
+                torch.zeros((R,), dtype=torch.int32, device=x.device))
+    return compact_sorted(sort_rows_plain(x), cap)
 
 
 def dedup_key_cap(W: int) -> int:
-    """Keys a dedup block holds in shared memory (csrc ``key_cap``): what is
-    left of ``fixed_bytes`` + 8 W, at most SMEM_MAX, after the per-warp digit
-    counts, the bucket starts and the scratch words."""
+    """Keys a sort or dedup block holds in shared memory (csrc
+    ``key_cap``): what is left of ``fixed_bytes`` + 8 W, at most SMEM_MAX,
+    after the per-warp digit counts, the bucket starts and the scratch
+    words."""
     threads = DEDUP_THREADS_SMALL if W <= DEDUP_SMALL_W else DEDUP_THREADS
     fixed = threads // 32 * RADIX * 2 + RADIX * 4 + DEDUP_RED * 4
     return (min(fixed + 8 * W, SMEM_MAX) - fixed) // 4
@@ -134,6 +115,13 @@ def dedup_scratch_words(R: int, W: int) -> int:
     another when one buffer of W does not fit either."""
     cap = dedup_key_cap(W)
     return 0 if 2 * W <= cap else R * W * (1 if W <= cap else 2)
+
+
+def sort_scratch_words(R: int, W: int) -> int:
+    """Words of the sort kernel's scratch: none when two buffers of W keys
+    fit in shared memory, else a row of W for the second buffer (the first,
+    when it does not fit either, is the output row)."""
+    return 0 if 2 * W <= dedup_key_cap(W) else R * W
 
 
 def radix_keys(k1, k2):
@@ -193,24 +181,30 @@ def _check_width(W: int, what: str):
 
 
 def sort_rows(x):
-    """Row-wise ascending sort of an (R, W) i32 matrix."""
+    """Row-wise ascending sort of an (R, W) i32 matrix.  On CUDA the output
+    and the kernel's scratch are one allocation."""
     _check(x, "sort_rows")
     if x.device.type == "cpu":
         return sort_rows_plain(x)
     _cuda.require_cuda(x)
     R, W = x.shape
     _check_width(W, "sort_rows")
-    out = torch.empty_like(x)
+    n_scratch = sort_scratch_words(R, W)          # 0, or R rows of W
+    buf = torch.empty((2 * R if n_scratch else R, W), dtype=torch.int32,
+                      device=x.device)
+    out = buf[:R]
     if R == 0 or W == 0:
         return out
-    p, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.function("dedup_compact", "sort_rows",
-                        [p, p, i32, i32, i32, p])
-    rc = fn(x.data_ptr(), out.data_ptr(), R, W, _pow2ceil(W),
-            _cuda.stream_of(x))
+    fn = _cuda.function("dedup_compact", "sort_rows", _SORT_ARGS)
+    rc = fn(x.data_ptr(), out.data_ptr(), buf.data_ptr() + 4 * R * W,
+            n_scratch, R, W, _cuda.stream_of(x))
     _cuda.check(rc, "sort_rows")
     _cuda.LAUNCHES["sort_rows"] += 1
     return out
+
+
+_SORT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
+    [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def dedup_compact_rows(x, cap: int):

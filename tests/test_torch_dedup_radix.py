@@ -6,11 +6,13 @@ full int32 range, negative values, -1 as a row's smallest value, constant,
 all-PAD and one-key rows, rows whose range needs 1 to 4 digit passes, cap
 at and past the width, W = 0 and widths past the emulated tile edges; one
 case against the Pallas kernel in interpret mode; and the kernel emulated
-step by step in numpy at a small block (per-warp segments and 16-bit digit
-counts, the bucket scan, the ranked scatter, the A/B buffer rule, the
-first-of-run count and write by warps), the gathered keys shuffled (their
-order in the kernel is that of its atomics).  The CUDA kernel runs only on
-the GPU, where ``chip_smoke.py`` holds it to the same kinds of cases.
+step by step in numpy at a small block (the routine both kernels share,
+radix_sort_row: per-warp segments and 16-bit digit counts, the bucket
+scan, the ranked scatter, the A/B buffer rule; then the dedup's
+first-of-run count and write by warps, or the sort's write of A and PAD),
+the gathered keys shuffled (their order in the kernel is that of its
+atomics).  The CUDA kernel runs only on the GPU, where ``chip_smoke.py``
+holds it to the same kinds of cases.
 """
 import pathlib
 import re
@@ -134,23 +136,23 @@ def _radix_pass(src, n_src, mn, shift, warps, items, drop_pad):
     return dst
 
 
-def emulate(x, cap, *, warps=4, items=2, key_cap=None, seed=0):
-    """dedup_radix_kernel on one row; returns (out, count, passes, the
-    buffers the passes wrote)."""
+def emulate_row(x, *, warps=4, items=2, key_cap=None, seed=0,
+                a_global="global"):
+    """radix_sort_row (steps 1 and 2, shared by both kernels) on one row;
+    returns (A[0, n) after the passes or None when there are none, n, the
+    valid keys' min, passes, the buffers the passes wrote).  ``a_global``
+    names the global row A lies in when n > key_cap: a scratch row for the
+    dedup, the output row for the sort."""
     rng = np.random.default_rng(seed)
     w = x.shape[0]
-    threads = warps * 32
     if key_cap is None:
         key_cap = 2 * w
     x = x.astype(np.int64)
     v = x[x != PAD]
     n = v.shape[0]
     gather = n <= key_cap // 2           # all valid keys gathered
-    out = np.full(cap, PAD, np.int64)
     if n == 0 or v.min() == v.max():
-        total = int(n > 0 and v.min() != -1)
-        out[:min(total, cap)] = v[:1][:min(total, cap)]
-        return out, total, 0, []
+        return None, n, int(v[0]) if n else PAD, 0, []
     mn = int(v.min())
     span = int(v.max()) - mn
     passes = (span.bit_length() + 7) // 8
@@ -159,13 +161,27 @@ def emulate(x, cap, *, warps=4, items=2, key_cap=None, seed=0):
     for p in range(passes):
         into_a = (passes - 1 - p) % 2 == 0
         where = "smem" if gather or (n <= key_cap if into_a
-                                     else 2 * n <= key_cap) else "global"
+                                     else 2 * n <= key_cap) else \
+            (a_global if into_a else "global")
         wrote.append(("A" if into_a else "B", where))
         src = _radix_pass(src, n_src, mn, 8 * p, warps, items,
                           drop_pad=p == 0 and not gather)[:n]
         n_src = n
     assert wrote[-1][0] == "A"
-    a = src
+    return src, n, mn, passes, wrote
+
+
+def emulate(x, cap, *, warps=4, items=2, key_cap=None, seed=0):
+    """dedup_radix_kernel on one row; returns (out, count, passes, the
+    buffers the passes wrote)."""
+    threads = warps * 32
+    a, n, mn, passes, wrote = emulate_row(x, warps=warps, items=items,
+                                          key_cap=key_cap, seed=seed)
+    out = np.full(cap, PAD, np.int64)
+    if passes == 0:
+        total = int(n > 0 and mn != -1)
+        out[:min(total, cap)] = mn
+        return out, total, 0, []
     seg = -(-n // threads) * 32
     prev = np.concatenate([[-1], a[:-1]])
     first = a != prev
@@ -177,6 +193,19 @@ def emulate(x, cap, *, warps=4, items=2, key_cap=None, seed=0):
         keep = first[sl] & (at < cap)
         out[at[keep]] = a[sl][keep]
     return out, int(sum(counts)), passes, wrote
+
+
+def emulate_sort(x, *, warps=4, items=2, key_cap=None, seed=0):
+    """sort_radix_kernel on one row: radix_sort_row with the output row as
+    A's global row, then A[0, n) (n copies of the min when there are no
+    passes) and PAD after it; returns (out, passes, the buffers the passes
+    wrote)."""
+    a, n, mn, passes, wrote = emulate_row(x, warps=warps, items=items,
+                                          key_cap=key_cap, seed=seed,
+                                          a_global="out")
+    out = np.full(x.shape[0], PAD, np.int64)
+    out[:n] = mn if passes == 0 else a
+    return out, passes, wrote
 
 
 @pytest.mark.parametrize("W", [1, 31, 32, 33, 255, 256, 257, 300, 1025])
@@ -220,3 +249,24 @@ def test_python_mirrors_the_source():
     assert dk.dedup_scratch_words(2, dk.MAX_W) == 2 * 2 * dk.MAX_W
     assert dk.dedup_scratch_words(4, 16_384) == 0
     assert dk.dedup_key_cap(100) == 200
+    # one radix routine for both kernels: a single radix_pass and buffer
+    # rule, called from the sort's and the dedup's kernel; no bitonic
+    # network is left; the sort's scratch is B's rows alone (A's global
+    # row is its output row) and its C entry takes no virtual width
+    assert src.count("void radix_pass(") == 1
+    assert src.count("__device__ SortedRow radix_sort_row(") == 1
+    assert src.count("A = n <= key_cap ? keys : a_glob;") == 1
+    for kern in ("sort_radix_kernel", "dedup_radix_kernel"):
+        body = src.split(f"\n{kern}(")[1].split("\n}\n")[0]
+        assert body.count("radix_sort_row(") == 1, kern
+    sort_body = src.split("\nsort_radix_kernel(")[1].split("\n}\n")[0]
+    assert "key_cap, o,\n" in sort_body
+    assert "bitonic_sort_shared" not in src and "sort_rows_kernel" not in src
+    entry = re.search(r'extern "C" int sort_rows\(([^)]*)\)', src).group(1)
+    assert len(entry.split(",")) == len(dk._SORT_ARGS) == 7
+    assert "w2" not in entry
+    assert "2LL * w <= l.key_cap ? 0 : (long long)n_rows * w;" in src
+    assert dk.sort_scratch_words(64, 8192) == 0
+    assert dk.sort_scratch_words(4, 26_816) == 0
+    assert dk.sort_scratch_words(4, 26_817) == 4 * 26_817
+    assert dk.sort_scratch_words(2, dk.MAX_W) == 2 * dk.MAX_W
