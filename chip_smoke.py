@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's A1 read path, LM serving and training paths and
-GNN/recsys zoo on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's A1 read and write paths, LM serving and training
+paths and GNN/recsys zoo on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # the whole run (one GPU, ~10 minutes)
     python3 chip_smoke.py --quick    # build and check the kernels only
@@ -27,10 +27,25 @@ Phases, each printed on its own line:
   6. shared — the same batches with ``budget="shared"`` (the serving tier's
      mode for batches of 64 and more): equal to ``backend="ref"`` bit for
      bit, and holding the shared-mode contract against phase 5's results;
+ 6b. write — the a1-kg ``update`` cell on phase 5's store: 72 mutation
+     waves through ``GraphDB.write(txns)`` (~416 transactions a wave near
+     the default ``BatchCaps``: film and actor creates, checked cast edges
+     to Zipf actors, dob updates, film deletes with their cascades; a
+     quarter of each wave staged before the previous wave commits, so
+     stale reads abort too), both inline compactions at full size, with a
+     pre-wave ``read_ts`` pinned throughout; read-backs every 8 waves and
+     after the last (created vertices by key with their attributes, every
+     written film's edges, deleted films gone, aborted writes invisible, a
+     q1 / q3 / select batch equal to ``backend="ref"`` and, at the pinned
+     ``read_ts``, to its pre-wave results); a WRITE line and a profiled
+     commit;
   7. nearest — a second store (the JAX package's hybrid vector+graph
      workload at one machine's size: 4 M vector-indexed docs) and batches of
      ``Nearest``-rooted queries in both budget modes, equal to
-     ``backend="ref"``;
+     ``backend="ref"``; then one write wave of doc creates and embedding
+     updates and the vector fold, with phase 7's ``read_ts`` pinned:
+     ``Nearest`` equal to ``backend="ref"`` at the new clock and to phase
+     7's results at the pinned one;
   8. mesh4 — four a1-kg shards, each at one machine's full caps, side by
      side on the card (``make_mesh(4)``), and phase 5's batch shapes through
      ``GraphDB.query(mesh=...)`` (the SPMD query-shipping programs) in both
@@ -70,7 +85,7 @@ Phases, each printed on its own line:
      BST's item table with the train batch's histories as bags), and
      ``segment_spmm`` against the model's ``common.spmm`` on cora;
  10. kernels — each kernel at the inputs the main path gave it: its
-     launches during phases 5-9c, its time beside the plain version's, the
+     launches during phases 5-9c (by path, ``write`` among them), its time beside the plain version's, the
      bound and a library call, as one JSON line; a kernel under 0.5 ms and
      its library call are timed again as 20 calls in one CUDA graph
      (``graph_ms``: no host time inside), and its wrapper's host time a
@@ -84,11 +99,16 @@ Phases, each printed on its own line:
      ``gathered_ms`` (x's row read once an id), and its share of ``ms``;
  11. small reference — small stores against plain set computations and a
      numpy k-NN in the kernels' summation order, on one shard and on a
-     4-shard mesh.
+     4-shard mesh; the CPU tests' seeded write script on the card and on
+     the CPU (every store field, host mirror, event and wave record equal
+     bit for bit); the film KG loaded through the write path onto 4
+     shards, edited by a write wave, and queried through a 4-shard mesh
+     against set computations.
 
 Each of phases 5-9b sets the kernels' launch counts to 0 just before its
 timed batches, calls or steps (per budget mode or cell) and reads them just
-after; phase 9c does so around its kernel calls.
+after (the write phase around the whole phase: its launches are its
+read-back queries'); phase 9c does so around its kernel calls.
 Any failed check raises, so the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 before
 printing any result.  ``--rehearse`` runs phases 4-9c and 11 at a tiny size
@@ -97,6 +117,7 @@ on the CPU (plain kernel versions, no build) and then exits 1.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -118,12 +139,24 @@ KG_FULL = dict(n_films=3_500_000, n_actors=10_000_000, n_directors=1_000_000,
 BATCHES = 8                     # timed batches per serve cell
 KG_REHEARSE = dict(n_films=3_000, n_actors=6_000, n_directors=500,
                    n_genres=16)
+# the write phase: a1-kg's update cell (src/repro/configs/a1_kg.py:49, the
+# commit-batch apply at the default BatchCaps, src/repro/launch/steps.py:
+# 439-463) on phase 5's store; a wave's staged totals are near the caps:
+# 256 create_v (32 ingest txns of 2 films and 6 actors), 128 update_v, 32
+# delete_v (cascades <= 256 delete_e), 512 create_e (320 ingest, 192
+# cast).  72 waves carry both inline backstops (cap_idx_delta near wave
+# 63, cap_delta before it)
+WRITE_FULL = dict(waves=72, ingest=32, cast=192, update=128, delete=32,
+                  readback_every=8, pool=256)
+WRITE_REHEARSE = dict(waves=12, ingest=4, cast=16, update=16, delete=4,
+                      readback_every=4, pool=32)
 # the hybrid vector+graph workload (benchmarks/bench_vector.py): 16 docs a
 # tag, two doc.tag edges a doc; d = the a1-kg payload width, one machine's
 # 4 M vector-indexed docs
 NEAREST_FULL = dict(n_docs=4_194_304, d=32)
 NEAREST_REHEARSE = dict(n_docs=4_096, d=32)
 NEAREST_K = 8
+DOC_WRITE_ROOM = 4_096          # slots for the doc store's write wave
 # mesh4: four a1-kg shards at one machine's caps each (4x the one-shard
 # graph), on one card; the bucket grows with the frontier a shard sends
 # each owner (a 4096-pair frontier sends ~16 pairs an owner at 256 shards,
@@ -295,9 +328,16 @@ def q_select(did):    # films of X with their attributes (a select terminal)
 def zipf_keys(rng, n_items: int, base: int, size: int, a: float = 1.5):
     """Keys drawn by the loader's popularity law (rank r has weight r^-a)."""
     import numpy as np
-    cdf = np.cumsum(1.0 / np.power(np.arange(1, n_items + 1), a))
+    cdf = _zipf_cdf(n_items, a)
     r = np.searchsorted(cdf, rng.random(size) * cdf[-1], side="right")
     return base + np.minimum(r, n_items - 1)
+
+
+@functools.lru_cache(maxsize=8)
+def _zipf_cdf(n_items: int, a: float):
+    """The law's cumulative weights (10 M items: kept, not rebuilt a draw)."""
+    import numpy as np
+    return np.cumsum(1.0 / np.power(np.arange(1, n_items + 1), a))
 
 
 # ---------------------------------------------------------------------------
@@ -1670,6 +1710,571 @@ def phase_serve_shared(kg, dev, batches, pq_results, pq_peak, launches,
                           budget="shared")
 
 
+# ---------------------------------------------------------------------------
+# the write phase: a1-kg's update cell on phase 5's store
+# ---------------------------------------------------------------------------
+
+class _WriteLoad:
+    """The write phase's op generator, and the host's record of what
+    committed: the truth the read-backs hold the store to.
+
+    A wave's transactions, in a shuffled order: ``ingest`` (two new films
+    of one genre, each with a pool director and three new actors, and
+    their director, genre and cast edges, unchecked, as a bulk load writes
+    them; a wave's ingest uses distinct genres and directors), ``cast``
+    (one checked film.actor edge from a film this phase created to an
+    actor drawn by the loader's Zipf law), ``update`` (an actor's ``dob``:
+    Zipf actors, and actors this phase created) and ``delete`` (a film
+    and, by the cascade, its edges: films of pool directors, any film of
+    the load, films this phase created).  A delete's cascade writes its
+    film's genre and director edge lists, so a wave's deletes pick films
+    of other genres and directors than its ingest: the index delta then
+    fills by ~256 creates a wave and passes ``cap_idx_delta`` in 72.
+
+    The cascade deletes the edges the delete's staging read, and its read
+    set holds the vertex, not its edge lists (as in the JAX package): an
+    edge committed after that snapshot (a ``cast`` of the wave before)
+    outlives the film.  The truth keeps such edges as ``dangling``."""
+
+    def __init__(self, kg, rng, sz):
+        import numpy as np
+        self.kg, self.db, self.rng, self.sz = kg, kg.db, rng, sz
+        db = kg.db
+        self.a0 = kg.n_directors
+        self.g0 = self.a0 + kg.n_actors
+        self.f0 = self.g0 + kg.n_genres
+        self.col = {n: db.vt(t).attr(n).col for t, n in (
+            ("film", "gross"), ("film", "year"), ("film", "genre"),
+            ("actor", "dob"))}
+        self.vtid = {n: db.vt(n).type_id for n in ("film", "actor")}
+        self.et = {n: db.et(n).type_id for n in ("film.director",
+                                                  "film.actor", "film.genre")}
+        e = kg.edges
+        m = e["etype"] == self.et["film.director"]
+        # each loaded film's director and genre gid, by film index
+        self.dir_of = np.empty(kg.n_films, np.int64)
+        self.dir_of[e["dst"][m] - self.f0] = e["src"][m]
+        mg = e["etype"] == self.et["film.genre"]
+        self.genre_of = np.empty(kg.n_films, np.int64)
+        self.genre_of[e["src"][mg] - self.f0] = e["dst"][mg]
+        active = np.unique(e["src"][m])
+        half = sz["pool"] // 2
+        pool = np.concatenate([rng.choice(active, half, replace=False),
+                               rng.choice(kg.n_directors, half,
+                                          replace=False)])
+        self.pool = np.unique(pool)
+        own = np.isin(e["src"][m], self.pool)
+        self.pool_films = [int(f) for f in rng.permutation(e["dst"][m][own])]
+        self.key = {"film": 200_000_000, "actor": 300_000_000}
+        self.dob_next = 5_000_000
+        self.films = {}        # film gid -> truth of a film this phase made
+        self.live = []         # those films, committed and not deleted
+        self.actors = {}       # actor gid -> [key, dob] of actors it made
+        self.dob = {}          # actor gid -> last committed dob (updates)
+        self.deleted = {}      # gid -> (vtype name, key)
+        self.dangling = {}     # deleted film -> {"out": set, "in": set}
+        self.aborted_keys = []             # (vtype name, key)
+        self.aborted_dob = []              # (gid, dob)
+        self.busy = set()      # films a staged, uncommitted txn deletes
+        self.rejected = {}     # staging ValueError message -> count
+        self.stage_s = {}      # kind -> staging seconds
+        self.committed_ops = 0
+
+    # -- staging -------------------------------------------------------
+    def plan(self) -> dict:
+        """One wave: its transactions' kinds, shuffled, and the distinct
+        pool directors and genres its ingest uses."""
+        sz, rng = self.sz, self.rng
+        kinds = (["ingest"] * sz["ingest"] + ["cast"] * sz["cast"]
+                 + ["update"] * sz["update"] + ["delete"] * sz["delete"])
+        rng.shuffle(kinds)
+        dirs = [int(d) for d in rng.choice(self.pool, 2 * sz["ingest"],
+                                           replace=False)]
+        genres = [self.g0 + int(g) for g in rng.choice(
+            self.kg.n_genres, sz["ingest"], replace=False)]
+        return dict(kinds=kinds, dirs=dirs, genres=genres,
+                    taken=set(dirs) | set(genres))
+
+    def stage(self, kind, wave):
+        """Stage one transaction of ``kind``; returns (txn, meta), or None
+        when there is nothing to stage or staging raised ``ValueError``
+        (counted by message)."""
+        t = self.db.create_transaction()
+        t0 = time.perf_counter()
+        try:
+            meta = getattr(self, f"_{kind}")(t, wave)
+        except ValueError as err:
+            self.rejected[str(err)] = self.rejected.get(str(err), 0) + 1
+            meta = None
+        self.stage_s[kind] = (self.stage_s.get(kind, 0.0)
+                              + time.perf_counter() - t0)
+        if meta is None:
+            return None
+        meta["kind"] = kind
+        return t, meta
+
+    def _new_key(self, vt):
+        self.key[vt] += 1
+        return self.key[vt]
+
+    def _ingest(self, t, wave):
+        from repro_torch.core.writes import CreateEdge, CreateVertex
+        rng = self.rng
+        genre = wave["genres"].pop()
+        films, ops, edges = [], [], []
+        for _ in range(2):
+            fat = {"gross": float(rng.uniform(1, 500)),
+                   "year": int(rng.integers(1960, 2026)),
+                   "genre": genre - self.g0}
+            acts = [(self._new_key("actor"), int(rng.integers(1940, 2000)))
+                    for _ in range(3)]
+            films.append(dict(key=self._new_key("film"), attrs=fat,
+                              director=wave["dirs"].pop(), genre=genre,
+                              acts=acts))
+            ops += ([CreateVertex("film", films[-1]["key"], fat)]
+                    + [CreateVertex("actor", k, {"dob": d})
+                       for k, d in acts])
+        gids = self.db.write(ops, txn=t).gids
+        for j, f in enumerate(films):
+            film, actors = gids[4 * j], gids[4 * j + 1:4 * j + 4]
+            f.update(film=film, actors=[(a, k, d) for a, (k, d) in
+                                        zip(actors, f.pop("acts"))])
+            edges += ([CreateEdge(f["director"], film, "film.director",
+                                  check=False),
+                       CreateEdge(film, genre, "film.genre", check=False)]
+                      + [CreateEdge(film, a, "film.actor", check=False)
+                         for a in actors])
+        self.db.write(edges, txn=t)
+        return dict(films=films, ops=len(ops) + len(edges))
+
+    def _zipf_actor(self):
+        k = zipf_keys(self.rng, self.kg.n_actors, 0, 1)[0]
+        return self.a0 + int(k)
+
+    def _cast(self, t, wave):
+        from repro_torch.core.writes import CreateEdge
+        if not self.live:
+            return None
+        film = self.live[int(self.rng.integers(len(self.live)))]
+        actor = self._zipf_actor()
+        if film in self.busy or actor in self.films[film]["actors"]:
+            return None
+        self.db.write([CreateEdge(film, actor, "film.actor")], txn=t)
+        return dict(film=film, actor=actor, ops=1)
+
+    def _update(self, t, wave):
+        from repro_torch.core.writes import UpdateVertex
+        if self.actors and self.rng.random() < 0.25:
+            mine = list(self.actors)
+            gid = mine[int(self.rng.integers(len(mine)))]
+        else:
+            gid = self._zipf_actor()
+        self.dob_next += 1
+        self.db.write([UpdateVertex(gid, "actor", {"dob": self.dob_next})],
+                      txn=t)
+        return dict(gid=gid, dob=self.dob_next, ops=1)
+
+    def _target(self):
+        """A film to delete: a pool director's, any loaded one, or one this
+        phase made (from the older half)."""
+        r = self.rng.random()
+        if r < 0.25 and self.pool_films:
+            return self.pool_films.pop()
+        if r < 0.5 or len(self.live) < 8:
+            return self.f0 + int(self.rng.integers(self.kg.n_films))
+        return self.live[int(self.rng.integers(len(self.live) // 2))]
+
+    def _delete(self, t, wave):
+        from repro_torch.core.writes import DeleteVertex
+        for _ in range(8):
+            film = self._target()
+            if film in self.busy or film in self.deleted:
+                continue
+            if film in self.films:
+                lists = {self.films[film]["director"],
+                         self.films[film]["genre"]}
+            else:
+                lists = {int(self.dir_of[film - self.f0]),
+                         int(self.genre_of[film - self.f0])}
+            if not lists & wave["taken"]:
+                break
+        else:
+            return None
+        self.db.write([DeleteVertex(film)], txn=t)
+        self.busy.add(film)
+        return dict(film=film, ops=1 + len(t.delete_e),
+                    cascade=set(t.delete_e))
+
+    # -- outcomes ------------------------------------------------------
+    def settle(self, metas, statuses, reasons, counts):
+        for meta, st, why in zip(metas, statuses, reasons):
+            kind = meta["kind"]
+            if kind == "delete":
+                self.busy.discard(meta["film"])
+            if st != "COMMITTED":
+                counts[why] = counts.get(why, 0) + 1
+                if kind == "ingest":
+                    for f in meta["films"]:
+                        self.aborted_keys += [("film", f["key"])] + [
+                            ("actor", k) for _, k, _ in f["actors"]]
+                elif kind == "update":
+                    self.aborted_dob.append((meta["gid"], meta["dob"]))
+                continue
+            counts["committed"] = counts.get("committed", 0) + 1
+            self.committed_ops += meta["ops"]
+            if kind == "ingest":
+                for f in meta["films"]:
+                    self.films[f["film"]] = dict(
+                        f, actors={a for a, _, _ in f["actors"]})
+                    self.live.append(f["film"])
+                    for a, k, dob in f["actors"]:
+                        self.actors[a] = [k, dob]
+            elif kind == "cast":
+                self.films[meta["film"]]["actors"].add(meta["actor"])
+            elif kind == "update":
+                self.dob[meta["gid"]] = meta["dob"]
+                if meta["gid"] in self.actors:
+                    self.actors[meta["gid"]][1] = meta["dob"]
+            else:
+                f = meta["film"]
+                key = (self.films[f]["key"] if f in self.films
+                       else 100_000 + f - self.f0)
+                self.deleted[f] = ("film", key)
+                self.dangling[f] = {"out": set(), "in": set()}
+                if f in self.films:
+                    self.live.remove(f)
+                    self._dangle(f, meta["cascade"])
+
+    def _dangle(self, f, cascade):
+        """The edges of film ``f`` its delete's cascade did not name."""
+        et, t, d = self.et, self.films[f], self.dangling[f]
+        d["out"] = ({a for a in t["actors"]
+                     if (f, a, et["film.actor"]) not in cascade}
+                    | ({t["genre"]} - {g for _, g, e in cascade
+                                       if e == et["film.genre"]}))
+        if (t["director"], f, et["film.director"]) not in cascade:
+            d["in"] = {t["director"]}
+
+
+def _chunks_of(xs, n):
+    return [xs[i:i + n] for i in range(0, len(xs), n)]
+
+
+def _lookup_many(db, vtid, keys, ts):
+    """Gids (-1: not found) of (vtid, key) pairs at ``ts``, 1,024 at once
+    (the index-delta scan is a (probes x delta) mask)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import index as index_mod
+    out = []
+    for part in _chunks_of(list(keys), 1024):
+        k = torch.as_tensor(np.asarray(part, np.int32), device=db.device)
+        g, _ = index_mod.lookup(db.store, db.cfg, torch.full_like(k, vtid),
+                                k, torch.ones_like(k, dtype=torch.bool),
+                                int(ts))
+        out.append(g.cpu().numpy())
+    return np.concatenate(out) if out else np.zeros(0, np.int32)
+
+
+def _rows_many(db, gids, ts):
+    """(f32 rows, i32 rows, alive) of ``gids`` at ``ts``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.store import gather_data
+    g = torch.as_tensor(np.asarray(gids, np.int32), device=db.device)
+    f, i, alive = gather_data(db.store, db.cfg, g, int(ts))
+    return f.cpu().numpy(), i.cpu().numpy(), alive.cpu().numpy()
+
+
+def _edge_sets(db, gids, direction, etype, ts):
+    """{gid: set of neighbours} over edges of ``etype`` in ``direction`` at
+    ``ts``, 256 vertices an expansion."""
+    import numpy as np
+    import torch
+    from repro_torch.core import edges as edges_mod
+    out = {int(g): set() for g in gids}
+    for part in _chunks_of(list(gids), 256):
+        g = torch.as_tensor(np.asarray(part, np.int32), device=db.device)
+        q = torch.arange(g.shape[0], dtype=torch.int32, device=db.device)
+        oq, on, ov, ovf = edges_mod.expand(
+            db.store, db.cfg, q, g, torch.ones_like(g, dtype=torch.bool),
+            etype=int(etype), direction=direction, read_ts=int(ts),
+            cap_out=64 * len(part))
+        check(not bool(ovf), "read-back: edge expansion overflowed")
+        oq, on, ov = (x.cpu().numpy() for x in (oq, on, ov))
+        for a, b in zip(oq[ov], on[ov]):
+            out[int(part[a])].add(int(b))
+    return out
+
+
+def _write_readback(load, batch, rec0, ts0, caps, dev):
+    """The store against the host's truth at the current clock, the
+    query batch against ``backend="ref"`` now and against ``rec0`` at
+    ``ts0``.  Returns the number of vertices and edges checked."""
+    import numpy as np
+    db, col, now = load.db, load.col, load.db.clock
+    films = [f for f in load.films if f not in load.deleted]
+    # every vertex created in a committed wave: found by key, attributes
+    fkeys = [load.films[f]["key"] for f in films]
+    check(np.array_equal(_lookup_many(db, load.vtid["film"], fkeys, now),
+                         np.asarray(films)), "read-back: a film is lost")
+    fr, ir, alive = _rows_many(db, films, now)
+    want_g = np.asarray([load.films[f]["attrs"]["gross"] for f in films],
+                        np.float32)
+    check(alive.all() and np.array_equal(fr[:, col["gross"]].view(np.int32),
+                                         want_g.view(np.int32))
+          and ir[:, col["year"]].tolist() == [
+              load.films[f]["attrs"]["year"] for f in films]
+          and ir[:, col["genre"]].tolist() == [
+              load.films[f]["attrs"]["genre"] for f in films],
+          "read-back: a film's attributes differ")
+    acts = list(load.actors)
+    check(np.array_equal(_lookup_many(db, load.vtid["actor"],
+                                      [load.actors[a][0] for a in acts],
+                                      now), np.asarray(acts)),
+          "read-back: an actor is lost")
+    dob = dict(load.dob)
+    dob.update({a: v for a, (_, v) in load.actors.items()})
+    upd = list(dob)
+    _, ir, alive = _rows_many(db, upd, now)
+    check(alive.all() and ir[:, col["dob"]].tolist() == [dob[g] for g in upd],
+          "read-back: an actor's dob is not its last committed one")
+    # every film's edges, from the film's side, equal the truth
+    et = {n: db.et(n).type_id for n in ("film.director", "film.actor",
+                                         "film.genre")}
+    got_a = _edge_sets(db, films, "out", et["film.actor"], now)
+    got_g = _edge_sets(db, films, "out", et["film.genre"], now)
+    got_d = _edge_sets(db, films, "in", et["film.director"], now)
+    for f in films:
+        t = load.films[f]
+        check(got_a[f] == t["actors"] and got_g[f] == {t["genre"]}
+              and got_d[f] == {t["director"]},
+              f"read-back: film {f}'s edges differ from the committed ones")
+    # every deleted vertex and the edges its cascade named are gone
+    dead = list(load.deleted)
+    check((_lookup_many(db, load.vtid["film"],
+                        [load.deleted[g][1] for g in dead], now) < 0).all()
+          and not _rows_many(db, dead, now)[2].any(),
+          "read-back: a deleted film is still visible")
+    for d in ("out", "in"):
+        got = _edge_sets(db, dead, d, -1, now)
+        check(all(got[g] == load.dangling[g][d] for g in dead),
+              f"read-back: a deleted film's {d}-edges differ from the "
+              "edges its cascade did not name")
+    # no write of an aborted transaction is visible
+    for vt in ("film", "actor"):
+        keys = [k for v, k in load.aborted_keys if v == vt]
+        check((_lookup_many(db, load.vtid[vt], keys, now) < 0).all(),
+              f"read-back: an aborted {vt} create is visible")
+    if load.aborted_dob:
+        gids = [g for g, _ in load.aborted_dob]
+        cur = _rows_many(db, gids, now)[1][:, col["dob"]]
+        check(all(c != v for c, (_, v) in zip(cur, load.aborted_dob)),
+              "read-back: an aborted update is visible")
+    # the query batch: against ref now, against the pre-wave record at ts0
+    res = db.query(batch, caps=caps, fused=True, backend="kernel")
+    _same(res, db.query(batch, caps=caps, fused=True, backend="ref"),
+          "write read-back at the new clock")
+    _same(db.query(batch, caps=caps, fused=True, backend="kernel",
+                   read_ts=ts0), rec0, "write read-back at the pinned ts")
+    _sync(dev)
+    n_edges = sum(len(s) for s in got_a.values()) + 2 * len(films)
+    return len(films) + len(acts) + len(upd) + len(dead), n_edges
+
+
+class _PackTimer:
+    """Times the planner's pack of a wave's delta matches
+    (``planner._fit_delta``) on the calls that pack: on the card, CUDA
+    events around each call (its host read of the width included); on the
+    CPU, the host clock."""
+
+    def __init__(self, planner_mod, dev):
+        self.mod, self.fit, self.dev = planner_mod, planner_mod._fit_delta, dev
+        self.calls = []          # (columns in, columns out, start, end)
+        planner_mod._fit_delta = self._fit
+
+    def _stamp(self):
+        import torch
+        if self.dev.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _fit(self, dn, row_w, backend):
+        t0 = self._stamp()
+        out = self.fit(dn, row_w, backend)
+        if out is not dn:
+            self.calls.append((dn.shape[1], out.shape[1], t0, self._stamp()))
+        return out
+
+    def restore(self):
+        self.mod._fit_delta = self.fit
+
+    def summary(self) -> dict:
+        import numpy as np
+        _sync(self.dev)
+        if self.dev.type == "cuda":
+            ms = [a.elapsed_time(b) for _, _, a, b in self.calls]
+        else:
+            ms = [(b - a) * 1e3 for _, _, a, b in self.calls]
+        out = [c[1] for c in self.calls]
+        return dict(calls=len(ms), ms_total=float(np.sum(ms)),
+                    ms_p50=float(np.median(ms)) if ms else None,
+                    ms_max=float(np.max(ms)) if ms else None,
+                    columns_in_max=max((c[0] for c in self.calls),
+                                       default=None),
+                    columns_out_p50=float(np.median(out)) if out else None,
+                    columns_out_max=max(out, default=None))
+
+
+def phase_write(kg, dev, sz, launches, rec=None, caps_kw=A1_CAPS):
+    """The a1-kg ``update`` cell: ``sz["waves"]`` mutation waves through
+    ``GraphDB.write(txns)`` on phase 5's store, a quarter of each wave
+    staged before the previous wave commits; read-backs every
+    ``readback_every`` waves and after the last; one WRITE line."""
+    import numpy as np
+    import torch
+    from repro_torch.core.query import planner as planner_mod
+    from repro_torch.core.query.executor import QueryCaps
+    from repro_torch.core.writes import CapacityError, DeleteVertex
+    from repro_torch.kernels import _cuda
+    db = kg.db
+    caps = QueryCaps(**caps_kw)
+    rng = np.random.default_rng(11)
+    load = _WriteLoad(kg, rng, sz)
+    packs = _PackTimer(planner_mod, dev)
+    only = rec.only if rec is not None else None
+    if rec is not None:
+        rec.only = set()        # the kernel report keeps the serve inputs
+    _cuda.reset_launches()
+    t_phase = time.perf_counter()
+
+    # the top director's edge list is over get_edges' cap of 4,096 at full
+    # size: staging its delete raises, as the JAX package's does
+    hub_deg = int(np.count_nonzero(kg.edges["src"] == 0))
+    if hub_deg > 4096:
+        try:
+            db.write([DeleteVertex(0)], txn=db.create_transaction())
+            check(False, "staging a hub director's delete did not raise")
+        except CapacityError:
+            pass
+    # the read-back batch, its pre-wave results, and the snapshot pin
+    dk = [1_000 + int(d) for d in load.pool]
+    hot = [10_000 + a for a in range(16)]
+    batch = [q1(dk[j % len(dk)]) if j < 22 else
+             q3(dk[j % len(dk)], hot[j % 16]) if j < 43 else
+             q_select(dk[j % len(dk)]) for j in range(64)]
+    ts0 = db.clock
+    rec0 = db.query(batch, caps=caps, fused=True, backend="kernel")
+    _same(rec0, db.query(batch, caps=caps, fused=True, backend="ref"),
+          "write read-back batch before the waves")
+    db.active_query_ts.append(ts0)
+
+    comp = []
+
+    def timed(kind, fn):
+        def run():
+            _sync(dev)
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            comp.append(dict(kind=kind, wave=wave,
+                             seconds=time.perf_counter() - t0))
+        return run
+    for kind in ("run_compaction", "run_index_compaction",
+                 "run_vindex_compaction"):
+        setattr(db, kind, timed(kind, getattr(db, kind)))
+
+    def stage_part(plan, kinds):
+        t0 = time.perf_counter()
+        out = [x for x in (load.stage(k, plan) for k in kinds) if x]
+        return out, time.perf_counter() - t0
+
+    W = sz["waves"]
+    stage_s, commit_s, counts, n_txns, checked = [], [], {}, 0, [0, 0]
+    readback_s = 0.0
+    timed = [0, 0]           # committed ops and txns of the timed waves
+    plan = load.plan()
+    q = len(plan["kinds"]) // 4
+    early, early_s = stage_part(plan, plan["kinds"][:q])
+    for wave in range(W):
+        late, late_s = stage_part(plan, plan["kinds"][q:])
+        if wave + 1 < W:           # the next wave's first quarter, staged
+            plan = load.plan()     # before this wave commits
+            nxt, nxt_s = stage_part(plan, plan["kinds"][:q])
+        else:
+            nxt, nxt_s = [], 0.0
+        staged = early + late
+        txns = [t for t, _ in staged]
+        n_txns += len(txns)
+        check(bool(txns), f"wave {wave} staged no transaction")
+        _sync(dev)
+        t0 = time.perf_counter()
+        if wave == W - 1 and dev.type == "cuda":
+            # the last wave's commit is profiled, and left out of the
+            # commit times (the profiler's start-up is in its wall time)
+            out = []
+            _profile("write/update", lambda: out.append(db.write(txns)),
+                     float(np.median(commit_s)), wave=wave)
+            res = out[0]
+        else:
+            res = db.write(txns)
+            _sync(dev)
+            commit_s.append(time.perf_counter() - t0)
+        stage_s.append(early_s + late_s)
+        before = (load.committed_ops, counts.get("committed", 0))
+        load.settle([m for _, m in staged], res.statuses, res.reasons,
+                    counts)
+        if len(commit_s) == len(stage_s):      # a timed wave
+            timed[0] += load.committed_ops - before[0]
+            timed[1] += counts.get("committed", 0) - before[1]
+        early, early_s = nxt, nxt_s
+        if (wave + 1) % sz["readback_every"] == 0 or wave == W - 1:
+            t0 = time.perf_counter()
+            n_v, n_e = _write_readback(load, batch, rec0, ts0, caps, dev)
+            readback_s += time.perf_counter() - t0
+            checked[0] += n_v
+            checked[1] += n_e
+    db.active_query_ts.remove(ts0)
+    for kind in ("run_compaction", "run_index_compaction",
+                 "run_vindex_compaction"):
+        delattr(db, kind)
+    packs.restore()
+    launches["write"] = dict(_cuda.LAUNCHES)
+    if rec is not None:
+        rec.only = only
+    secs = float(np.sum(stage_s[:len(commit_s)]) + np.sum(commit_s))
+    st_ms, cm_ms = np.asarray(stage_s) * 1e3, np.asarray(commit_s) * 1e3
+    say("WRITE", cell="write/update", waves=W, txns_staged=n_txns,
+        committed=counts.get("committed", 0),
+        aborted={k: v for k, v in counts.items() if k != "committed"},
+        stage_rejected=load.rejected, committed_ops=load.committed_ops,
+        dangling_edges=sum(len(d["out"]) + len(d["in"])
+                           for d in load.dangling.values()),
+        ops_per_s=timed[0] / secs, committed_txns_per_s=timed[1] / secs,
+        timed_waves=len(commit_s),
+        stage_ms_p50=float(np.median(st_ms)),
+        stage_ms_p99=float(np.percentile(st_ms, 99)),
+        commit_ms_p50=float(np.median(cm_ms)),
+        commit_ms_p99=float(np.percentile(cm_ms, 99)),
+        stage_s_by_kind=load.stage_s, readback_s=readback_s,
+        delta_pack=packs.summary(),
+        inline_compactions=comp, readbacks=-(-W // sz["readback_every"]),
+        checked_vertices=checked[0], checked_edges=checked[1],
+        hub_out_degree=hub_deg, clock=db.clock,
+        phase_seconds=time.perf_counter() - t_phase,
+        store_bytes=db.store.nbytes(),
+        memory_allocated=(torch.cuda.memory_allocated()
+                          if dev.type == "cuda" else None),
+        reduced="n_shards 256 -> 1")
+    kinds = {c["kind"] for c in comp}
+    check({"run_compaction", "run_index_compaction"} <= kinds,
+          f"the waves ran the inline backstops {sorted(kinds)}, not both")
+    say("WRITE_PARITY", readbacks_equal_to_ref=True,
+        pinned_snapshot_equal=True)
+
+
 def _agree_local(m, loc, what) -> int:
     """A mesh result against the local path's on the same store: every
     query flagged by neither run has the same count, and (where neither
@@ -1803,11 +2408,14 @@ def build_doc_store(dev, n_docs: int, d: int, seed: int = 7,
     # a shard's half-edges: 2 a doc it owns, ~32 a tag it owns
     cap_e = 2 * n_docs if S == 1 else 2 * -(-n_docs // S) + 64
     # index entries route by a hash of (type, key), not by gid: room for
-    # the imbalance on several shards
-    cfg = StoreConfig(n_shards=S, cap_v=per_v, cap_e=cap_e,
-                      cap_delta=16_384, cap_idx=per_v if S == 1 else 2 * per_v,
+    # the imbalance on several shards; vertex slots, index entries and
+    # vector entries have room for the write wave of phase_nearest
+    room = DOC_WRITE_ROOM
+    cfg = StoreConfig(n_shards=S, cap_v=per_v + room, cap_e=cap_e,
+                      cap_delta=16_384,
+                      cap_idx=per_v + room if S == 1 else 2 * per_v,
                       cap_idx_delta=16_384,
-                      cap_vec=-(-n_docs // S), d_f32=d, d_i32=2)
+                      cap_vec=-(-n_docs // S) + room, d_f32=d, d_i32=2)
     catalog = Catalog()
     catalog.create_tenant("default")
     catalog.create_graph("default", "g")
@@ -1902,6 +2510,78 @@ def phase_nearest(dev, sizes, n_batches: int, launches, caps_kw=A1_CAPS):
         for cell, bs, kw in cells:
             phase_profile(db, cell, bs[0], float(np.median(lat_all[cell])),
                           caps=caps, **kw)
+    _nearest_write(db, dev, sizes, cells, runs, caps)
+
+
+def _nearest_write(db, dev, sizes, cells, runs, caps):
+    """One write wave on the doc store (32 transactions, each creating 4
+    docs with their doc.tag edges and updating 4 docs' embeddings, through
+    ``GraphDB.write``, so ``vindex.apply_wave`` appends and tombstones),
+    then the fold (``run_vindex_compaction``) with phase 7's ``read_ts``
+    pinned: ``Nearest`` at the new clock equals ``backend="ref"``, at the
+    pinned ``read_ts`` it equals phase 7's results; then the fold again
+    unpinned, which drops the replaced vectors."""
+    import numpy as np
+    from repro_torch.core.writes import CreateEdge, CreateVertex, UpdateVertex
+    rng = np.random.default_rng(3)
+    n_docs, d = sizes["n_docs"], sizes["d"]
+    n_tags = n_docs // 16
+    ts7, vx0 = db.clock, int(db.vx_count.sum())
+    db.active_query_ts.append(ts7)
+
+    def emb():
+        return {f"f{c}": float(x) for c, x in
+                enumerate(rng.standard_normal(d).astype(np.float32))}
+    t0 = time.perf_counter()
+    upd = rng.choice(n_docs, 128, replace=False)
+    tags = n_docs + rng.choice(n_tags, 128, replace=False)
+    txns = []
+    for j in range(32):
+        t = db.create_transaction()
+        gids = db.write([CreateVertex("doc", n_docs + 4 * j + k, emb())
+                         for k in range(4)], txn=t).gids
+        db.write([CreateEdge(g, int(tags[4 * j + k]), "doc.tag", check=False)
+                  for k, g in enumerate(gids)]
+                 + [UpdateVertex(int(g), "doc", emb())
+                    for g in upd[4 * j:4 * j + 4]], txn=t)
+        txns.append(t)
+    stage_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = db.write(txns)
+    _sync(dev)
+    commit_s = time.perf_counter() - t0
+    check(not res.failed, f"doc wave aborted: {set(res.reasons)}")
+    check(int(db.vx_count.sum()) == vx0 + 256,
+          "doc wave: 128 creates and 128 updates append 256 vectors")
+    folds = []
+    for pinned in (True, False):
+        if not pinned:
+            db.active_query_ts.remove(ts7)
+        t0 = time.perf_counter()
+        db.run_vindex_compaction()
+        _sync(dev)
+        folds.append(time.perf_counter() - t0)
+        check(int(db.vx_count.sum()) == vx0 + (256 if pinned else 128),
+              f"doc fold, pinned={pinned}: {int(db.vx_count.sum())} "
+              f"entries left of {vx0 + 256}")
+        for cell, bs, kw in cells:
+            res = db.query(bs[0], caps=caps, backend="kernel", **kw)
+            _same(res, db.query(bs[0], caps=caps, backend="ref", **kw),
+                  f"{cell} after the doc wave, pinned={pinned}")
+        if pinned:
+            n = 0
+            for path, kw in (("nearest", {}), ("nearest_shared",
+                                               {"budget": "shared"})):
+                for cell, qs, res in runs[path]:
+                    _same(db.query(qs, caps=caps, backend="kernel",
+                                   read_ts=ts7, **kw), res,
+                          f"{cell} at phase 7's read_ts after the wave")
+                    n += 1
+    say("NEAREST_WRITE", txns=len(txns), docs_created=128,
+        embeddings_updated=128, stage_ms=stage_s * 1e3,
+        commit_ms=commit_s * 1e3, fold_pinned_s=folds[0],
+        fold_unpinned_s=folds[1], vx_count=int(db.vx_count.sum()),
+        batches_equal_at_pinned_ts=n, new_clock_equal_to_ref=True)
 
 
 def _global_names(csrc: str) -> frozenset:
@@ -2855,7 +3535,126 @@ def phase_small_reference(dev):
     check(not sh.failed_q.any() and sh.counts.tolist() == want,
           f"small store, budget=shared: counts {sh.counts.tolist()}")
     n_near = _small_nearest_reference(dev)
-    say("SMALL_REFERENCE", queries=2 * len(want) + n_near, equal=True)
+    n_write = _small_write_reference(dev)
+    say("SMALL_REFERENCE", queries=2 * len(want) + n_near + n_write,
+        equal=True)
+
+
+def _same_db(a, b, what):
+    """Two databases' stores (every field, bit for bit), host mirrors and
+    wave records are equal."""
+    import numpy as np
+    import torch_write_script as script
+    from repro_torch.core.store import FIELDS
+    for name in FIELDS:
+        x, y = (getattr(d.store, name).cpu().numpy() for d in (a, b))
+        check(x.shape == y.shape and np.array_equal(x.view(np.int32),
+                                                    y.view(np.int32)),
+              f"{what}: store field {name} differs")
+    check(script.mirrors(a) == script.mirrors(b), f"{what}: host mirrors")
+    check(json.dumps(list(a.wave_log)) == json.dumps(list(b.wave_log)),
+          f"{what}: wave records")
+
+
+def _small_write_reference(dev) -> int:
+    """The CPU tests' seeded op script (``tests/torch_write_script.py``)
+    on this device and on the CPU: every store field, host mirror, event
+    and wave record equal bit for bit.  Then the film KG of the CPU tests
+    loaded through the write path onto 4 shards (equal to the CPU's load),
+    one wave of edits (films deleted with their edges, edges created and
+    deleted, a film created), and q1 / q2 / q3 through a 4-shard mesh and
+    locally, in both budget modes, against set computations over the edge
+    list the writes leave.  Returns the number of queries checked."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_write_script as script
+    from repro_torch.core import writes
+    from repro_torch.core.addressing import StoreConfig
+    from repro_torch.core.graphdb import GraphDB
+    from repro_torch.core.query.executor import QueryCaps
+    from repro_torch.core.txn import BatchCaps
+    from repro_torch.data.kg import load_film_kg
+    from repro_torch.dist.mesh import make_mesh
+    cpu = torch.device("cpu")
+    runs = []
+    for d in (dev, cpu):
+        db = GraphDB(StoreConfig(**script.CFG), caps=BatchCaps(**script.CAPS),
+                     device=d)
+        script.schema(db)
+        runs.append((db, json.dumps(script.run(db, writes))))
+    check(runs[0][1] == runs[1][1], "op script: events differ from the CPU's")
+    _same_db(runs[0][0], runs[1][0], "op script")
+    kgs = [load_film_kg(**script.KG_SIZES, cfg=StoreConfig(**script.KG_CFG),
+                        device=d) for d in (dev, cpu)]
+    _same_db(kgs[0].db, kgs[1].db, "film KG through the write path")
+    kg = kgs[0]
+    db = kg.db
+    rng = np.random.default_rng(8)
+    et = {n: db.et(n).type_id for n in ("film.director", "film.actor",
+                                         "film.genre")}
+    edges = set(zip(*(kg.edges[k].tolist() for k in ("src", "dst",
+                                                      "etype"))))
+    f0 = kg.n_directors + kg.n_actors + kg.n_genres
+    films = list(range(f0, f0 + kg.n_films))
+    acts = list(range(kg.n_directors, kg.n_directors + kg.n_actors))
+    gone = [int(f) for f in rng.choice(films, 3, replace=False)]
+    left = [f for f in films if f not in gone]
+    ops = [writes.DeleteVertex(f) for f in gone]
+    cast = sorted(e for e in edges if e[2] == et["film.actor"]
+                  and e[0] not in gone)
+    drop = [cast[int(k)] for k in rng.choice(len(cast), 4, replace=False)]
+    ops += [writes.DeleteEdge(s_, d_, "film.actor") for s_, d_, _ in drop]
+    new = set()
+    while len(new) < 6:
+        e = (int(rng.choice(left)), int(rng.choice(acts)), et["film.actor"])
+        if e not in edges:
+            new.add(e)
+    ops += [writes.CreateEdge(s_, d_, "film.actor") for s_, d_, _ in new]
+    res = db.write([writes.CreateVertex("film", 900_000, {"year": 2026})])
+    film = res.gids[0]
+    new |= {(0, film, et["film.director"]), (film, acts[0], et["film.actor"])}
+    ops += [writes.CreateEdge(0, film, "film.director", check=False),
+            writes.CreateEdge(film, acts[0], "film.actor", check=False)]
+    res = db.write(ops)
+    check(not res.failed, f"small write wave aborted: {res.reasons[0]}")
+    edges = {e for e in edges if e[0] not in gone and e[1] not in gone}
+    edges = (edges - set(drop)) | new
+    out_of, in_of = {}, {}
+    for s_, d_, e in edges:
+        out_of.setdefault((s_, e), set()).add(d_)
+        in_of.setdefault((d_, e), set()).add(s_)
+
+    def step(frontier, table, e):
+        return set().union(*[table.get((g, e), set()) for g in frontier])
+    dids = 1_000 + np.arange(kg.n_directors)
+    aids = 10_000 + rng.choice(kg.n_actors, kg.n_directors)
+    want = []
+    for d in dids:
+        fs = step({int(d) - 1_000}, out_of, et["film.director"])
+        want.append(len(step(fs, out_of, et["film.actor"])))
+    for d in dids:
+        fs = step({int(d) - 1_000}, out_of, et["film.director"])
+        actors = step(fs, out_of, et["film.actor"])
+        want.append(len(step(actors, in_of, et["film.actor"])))
+    for d, a in zip(dids, aids):
+        f1 = step({int(d) - 1_000}, out_of, et["film.director"])
+        f2 = step({kg.n_directors + int(a) - 10_000}, in_of,
+                  et["film.actor"])
+        want.append(len(f1 & f2))
+    qs = ([q1(d) for d in dids] + [q2(d) for d in dids]
+          + [q3(d, a) for d, a in zip(dids, aids)])
+    caps = QueryCaps(frontier=4096, expand=16384, results=64)
+    n = 0
+    for kw in ({}, {"mesh": make_mesh(4, dev)}):
+        for budget in ("per-query", "shared"):
+            r = db.query(qs, caps=caps, budget=budget, backend="kernel",
+                         **kw)
+            check(not r.failed_q.any() and r.counts.tolist() == want,
+                  f"small written store, mesh={bool(kw)}, budget={budget}: "
+                  f"{r.counts.tolist()} != {want}")
+            n += len(want)
+    return n
 
 
 def _small_nearest_reference(dev) -> int:
@@ -3467,6 +4266,8 @@ def phase_kernel_report(launches, best, extra=None):
     # slices' kernels that serve it too
     for path, need in (("shared", ("sort_pairs", "expand",
                                    "searchsorted_left_ranged")),
+                       ("write", ("searchsorted_left_ranged", "expand",
+                                  "dedup_compact_rows", "sort_rows")),
                        ("nearest", ("knn_topk", "dedup_compact_rows")),
                        ("nearest_shared", ("knn_topk", "sort_pairs")),
                        ("mesh", ("searchsorted_left", "expand",
@@ -3577,11 +4378,14 @@ def main(argv=None) -> int:
             return 1
         dev = torch.device("cpu")
         kg = phase_load(dev, KG_REHEARSE, dict(A1_SHARD, cap_v=20_000,
-                                               cap_e=80_000, cap_idx=20_000))
+                                               cap_e=80_000, cap_idx=20_000,
+                                               cap_delta=256,
+                                               cap_idx_delta=256))
         caps = dict(A1_CAPS, frontier=256, expand=1024)
         launches = {}
         batches, results, peak = phase_serve(kg, dev, 1, launches, caps)
         phase_serve_shared(kg, dev, batches, results, peak, launches, caps)
+        phase_write(kg, dev, WRITE_REHEARSE, launches, caps_kw=caps)
         phase_nearest(dev, NEAREST_REHEARSE, 1, launches, caps)
         kg = phase_load(dev, KG_REHEARSE, dict(A1_MESH, cap_v=5_000,
                                                cap_e=20_000, cap_idx=5_000),
@@ -3609,7 +4413,9 @@ def main(argv=None) -> int:
         launches = {}
         batches, results, peak = phase_serve(kg, dev, BATCHES, launches)
         phase_serve_shared(kg, dev, batches, results, peak, launches)
-        del kg, batches, results
+        del batches, results
+        phase_write(kg, dev, WRITE_FULL, launches, rec)
+        del kg
         torch.cuda.empty_cache()
         phase_nearest(dev, NEAREST_FULL, BATCHES, launches)
         torch.cuda.empty_cache()

@@ -61,7 +61,6 @@ def lookup(store: GraphStore, cfg: StoreConfig, vtypes, keys, valid, read_ts,
     snapshots; ``xd_win`` is the per-shard window on the index-delta scan
     (``None`` scans the whole ``cap_idx_delta``, with identical results)."""
     S, cap_x, cap_xd = cfg.n_shards, cfg.cap_idx, cfg.cap_idx_delta
-    q = vtypes.shape[0]
     dev = vtypes.device
     h = mix32(vtypes, keys)
     shard = route(vtypes, keys, S)
@@ -71,18 +70,24 @@ def lookup(store: GraphStore, cfg: StoreConfig, vtypes, keys, valid, read_ts,
                        I32MAX)
     pos0 = backend_mod.searchsorted_blocked(ix_h, h, base, block=cap_x,
                                             backend=backend)
-    best_g = torch.full((q,), int(NULL), dtype=torch.int32, device=dev)
-    best_ts = torch.full((q,), -1, dtype=torch.int32, device=dev)
-    for w in range(_WINDOW):
-        row = base + torch.clamp(pos0 + w, max=cap_x - 1)
-        g_r, c_r = store.ix_gid[row], store.ix_create[row]
-        hit = ((g_r >= 0)
-               & (store.ix_vtype[row] == vtypes)
-               & (store.ix_key[row] == keys)
-               & visible(c_r, store.ix_delete[row], read_ts))
-        newer = hit & (c_r > best_ts)
-        best_g = torch.where(newer, g_r, best_g)
-        best_ts = torch.where(newer, c_r, best_ts)
+    rts = read_ts
+    if isinstance(rts, torch.Tensor) and rts.dim() == 1:
+        rts = rts[:, None]
+    # the equal-hash run: _WINDOW entries from the insertion point, all at
+    # once; the newest visible hit wins, the first of equal create ts (the
+    # JAX package's loop over the window, which XLA fuses)
+    w = torch.arange(_WINDOW, dtype=torch.int32, device=dev)
+    row = (base[:, None] + torch.clamp(pos0[:, None] + w[None, :],
+                                       max=cap_x - 1)).long()
+    g_r, c_r = store.ix_gid[row], store.ix_create[row]
+    hit = ((g_r >= 0)
+           & (store.ix_vtype[row] == vtypes[:, None])
+           & (store.ix_key[row] == keys[:, None])
+           & visible(c_r, store.ix_delete[row], rts))
+    ts_w = torch.where(hit, c_r, -1)
+    best = torch.argmax(ts_w, dim=1, keepdim=True)   # first maximum
+    best_ts = ts_w.gather(1, best)[:, 0]
+    best_g = torch.where(best_ts >= 0, g_r.gather(1, best)[:, 0], int(NULL))
     g_main = torch.where(valid, best_g, int(NULL))
     ts_main = torch.where(valid, best_ts, -1)
 
@@ -92,9 +97,6 @@ def lookup(store: GraphStore, cfg: StoreConfig, vtypes, keys, valid, read_ts,
         (store.xd_vtype, store.xd_key, store.xd_gid,
          store.xd_create, store.xd_delete), S, cap_xd, W)
     xd_shard = torch.arange(S * W, dtype=torch.int32, device=dev) // W
-    rts = read_ts
-    if isinstance(rts, torch.Tensor) and rts.dim() == 1:
-        rts = rts[:, None]
     m = (valid[:, None]
          & (xd_vt[None, :] == vtypes[:, None])
          & (xd_k[None, :] == keys[:, None])

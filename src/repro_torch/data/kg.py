@@ -1,14 +1,22 @@
 """Synthetic film/entertainment knowledge graph (the paper's §6 dataset).
 
-Port of ``repro/data/kg.py`` for the read-only slice of the PyTorch port.
-The JAX package loads its graph through the transactional write path; this
-package has no write path yet, so :func:`assemble` lays a store out directly,
-exactly as the compactions leave it: vertex rows written in place, both
-CSRs built by :func:`repro_torch.core.edges._compact_one_shard` over an
-empty tier 1 with every half-edge as the "delta" (sorted by slot, edge type,
-neighbor), and the primary index built by
-:func:`repro_torch.core.index.merge_index_entries` the same way (sorted by
-mix32, vtype, key).  Once the write path is ported, this loader moves onto it.
+Port of ``repro/data/kg.py``.  Two loaders:
+
+* :func:`load_film_kg` is the JAX ``build_film_kg`` itself: the same
+  arguments, the same random draws in the same order, committed through the
+  transactional write path (``GraphDB.write`` in chunks of 200 vertices and
+  400 edges) and ended by both compactions, so on the same seed and config
+  its store equals the JAX package's field by field.  It stages every op
+  on the host, which takes hours at a paper-scale share.
+* :func:`build_film_kg` draws a graph of the same laws with vectorised numpy
+  and lays the store out directly with :func:`assemble`, exactly as the
+  compactions leave it: vertex rows written in place, both CSRs built by
+  :func:`repro_torch.core.edges._compact_one_shard` over an empty tier 1
+  with every half-edge as the "delta" (sorted by slot, edge type,
+  neighbor), and the primary index built by
+  :func:`repro_torch.core.index.merge_index_entries` the same way (sorted
+  by mix32, vtype, key).  One machine's share (millions of films) takes
+  seconds.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from repro_torch.core.backend import resolve_device
 from repro_torch.core.catalog import Catalog
 from repro_torch.core.graphdb import GraphDB
 from repro_torch.core.store import GraphStore, make_store
+from repro_torch.core.writes import CreateEdge, CreateVertex
 
 SCHEMA = (("v", "director", (), ("dob",)),
           ("v", "actor", (), ("dob",)),
@@ -46,6 +55,103 @@ class FilmKG:
     film_keys: np.ndarray
     genre_keys: np.ndarray
     edges: dict = None       # the generated edge list: src, dst, etype
+
+
+def _default_cfg(n_films, n_actors, n_directors, n_genres,
+                 actors_per_film) -> StoreConfig:
+    """The JAX loader's store for the requested scale (+slack for
+    updates)."""
+    n_v = n_films + n_actors + n_directors + n_genres
+    per_film = (actors_per_film[0] + actors_per_film[1]) // 2 + 2
+    n_e = n_films * per_film * 2
+    S = 8
+    return StoreConfig(
+        n_shards=S, cap_v=max(256, 2 * n_v // S),
+        cap_e=max(2048, 4 * n_e // S), cap_delta=max(512, n_e // S),
+        cap_idx=max(512, 4 * n_v // S),
+        cap_idx_delta=max(256, n_v // S), d_f32=2, d_i32=2)
+
+
+def load_film_kg(*, n_films: int = 200, n_actors: int = 300,
+                 n_directors: int = 40, n_genres: int = 8,
+                 actors_per_film: tuple = (2, 8), seed: int = 0,
+                 cfg: StoreConfig = None, db: GraphDB = None,
+                 zipf_a: float = 1.5, device=None) -> FilmKG:
+    """``repro.data.kg.build_film_kg`` through the port's write path: the
+    same ``rng`` calls in the same order, the same op records committed in
+    the same chunks, then both compactions.  ``FilmKG.edges`` lists the
+    generated edges (src and dst gids, edge type ids)."""
+    rng = np.random.default_rng(seed)
+    if db is None:
+        if cfg is None:
+            cfg = _default_cfg(n_films, n_actors, n_directors, n_genres,
+                               actors_per_film)
+        db = GraphDB(cfg, device=device)
+    for kind, name, f_attrs, i_attrs in SCHEMA:
+        if kind == "v":
+            db.vertex_type(name, f_attrs=f_attrs, i_attrs=i_attrs)
+        else:
+            db.edge_type(name)
+
+    d_keys = np.arange(1_000, 1_000 + n_directors)
+    a_keys = np.arange(10_000, 10_000 + n_actors)
+    f_keys = np.arange(100_000, 100_000 + n_films)
+    g_keys = np.arange(500, 500 + n_genres)
+
+    def load(ops, chunk):
+        """Commit op-record batches as implicit atomic writes, chunked to
+        stay under the commit batch caps; returns created gids in order."""
+        gids = []
+        for off in range(0, len(ops), chunk):
+            res = db.write(ops[off:off + chunk])
+            if res.failed:
+                raise RuntimeError(f"film KG load aborted: {res.reasons[0]}")
+            gids += res.gids
+        return gids
+
+    dirs = load([CreateVertex("director", int(k),
+                              {"dob": int(rng.integers(1940, 1995))})
+                 for k in d_keys], 200)
+    acts = load([CreateVertex("actor", int(k),
+                              {"dob": int(rng.integers(1940, 2000))})
+                 for k in a_keys], 200)
+    genres = load([CreateVertex("genre", int(k)) for k in g_keys], 200)
+
+    # Zipf-skewed popularity: a few mega-actors, like the paper's skew
+    pop = 1.0 / np.power(np.arange(1, n_actors + 1), zipf_a)
+    pop /= pop.sum()
+    dir_pop = 1.0 / np.power(np.arange(1, n_directors + 1), zipf_a)
+    dir_pop /= dir_pop.sum()
+
+    films = load([CreateVertex(
+        "film", int(k),
+        {"gross": float(rng.uniform(1, 500)),
+         "year": int(rng.integers(1960, 2026)),
+         "genre": int(rng.integers(n_genres))}) for k in f_keys], 200)
+
+    # bulk-load fast path (check=False): uniqueness is the loader's contract
+    e_ops = []
+    for f in films:
+        d = int(rng.choice(n_directors, p=dir_pop))
+        e_ops.append(CreateEdge(dirs[d], f, "film.director", check=False))
+        e_ops.append(CreateEdge(f, genres[int(rng.integers(n_genres))],
+                                "film.genre", check=False))
+        n_cast = int(rng.integers(*actors_per_film))
+        for a in rng.choice(n_actors, size=n_cast, replace=False, p=pop):
+            e_ops.append(CreateEdge(f, acts[int(a)], "film.actor",
+                                    check=False))
+    load(e_ops, 400)
+    db.run_compaction()
+    db.run_index_compaction()
+    ids = {name: db.et(name).type_id for name in
+           ("film.director", "film.actor", "film.genre")}
+    edges = dict(src=np.array([op.src for op in e_ops], np.int64),
+                 dst=np.array([op.dst for op in e_ops], np.int64),
+                 etype=np.array([ids[op.etype] for op in e_ops], np.int64))
+    return FilmKG(db=db, n_directors=n_directors, n_actors=n_actors,
+                  n_films=n_films, n_genres=n_genres,
+                  director_keys=d_keys, actor_keys=a_keys,
+                  film_keys=f_keys, genre_keys=g_keys, edges=edges)
 
 
 def _col(d: dict, name: str, n: int, fill, dtype=np.int32) -> np.ndarray:
@@ -182,7 +288,8 @@ def build_film_kg(*, n_films: int = 200, n_actors: int = 300,
                   device=None, ts: int = 1) -> FilmKG:
     """Film KG with the schema, key ranges, attributes and Zipf-skewed
     popularity of ``repro.data.kg.build_film_kg``, generated with vectorised
-    numpy so that one machine's share (millions of films) takes seconds.
+    numpy so that one machine's share (millions of films) takes seconds;
+    :func:`load_film_kg` is the JAX loader itself, through the write path.
 
     The laws are the JAX generator's, the draws are NOT: each film's cast is
     drawn by inverse CDF with repeats skipped, which samples without
@@ -194,15 +301,8 @@ def build_film_kg(*, n_films: int = 200, n_actors: int = 300,
     rng = np.random.default_rng(seed)
     dev = resolve_device(device)
     if cfg is None:
-        n_v = n_films + n_actors + n_directors + n_genres
-        per_film = (actors_per_film[0] + actors_per_film[1]) // 2 + 2
-        n_e = n_films * per_film * 2
-        S = 8
-        cfg = StoreConfig(
-            n_shards=S, cap_v=max(256, 2 * n_v // S),
-            cap_e=max(2048, 4 * n_e // S), cap_delta=max(512, n_e // S),
-            cap_idx=max(512, 4 * n_v // S),
-            cap_idx_delta=max(256, n_v // S), d_f32=2, d_i32=2)
+        cfg = _default_cfg(n_films, n_actors, n_directors, n_genres,
+                           actors_per_film)
     catalog = Catalog()
     catalog.create_tenant("default")
     catalog.create_graph("default", "g")
@@ -273,6 +373,7 @@ def build_film_kg(*, n_films: int = 200, n_actors: int = 300,
     gid = np.arange(n_v)
     db.v_next = np.bincount(gid % cfg.n_shards, minlength=cfg.n_shards
                             ).astype(np.int64)
+    db._rr = n_v % cfg.n_shards     # the round-robin allocator's cursor
     return FilmKG(db=db, n_directors=n_directors, n_actors=n_actors,
                   n_films=n_films, n_genres=n_genres,
                   director_keys=d_keys, actor_keys=a_keys,
