@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's A1 read and write paths, LM serving and training
-paths and GNN/recsys zoo on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's A1 read and write paths, its maintenance and
+durability paths, LM serving and training paths and GNN/recsys zoo on one
+NVIDIA GPU and check them.
 
-    python3 chip_smoke.py            # the whole run (one GPU, ~10 minutes)
+    python3 chip_smoke.py            # the whole run (one GPU)
     python3 chip_smoke.py --quick    # build and check the kernels only
 
 Phases, each printed on its own line:
@@ -39,6 +40,20 @@ Phases, each printed on its own line:
      q1 / q3 / select batch equal to ``backend="ref"`` and, at the pinned
      ``read_ts``, to its pre-wave results); a WRITE line and a profiled
      commit;
+ 6c. maintenance — on 6b's written store, a ``TaskQueue`` and a
+     ``FaultInjector`` attached and a pre-phase ``read_ts`` pinned: waves
+     of 6b's mix with ``pump(1)`` between waves until the background
+     compaction has handed off both ``edges`` and ``index`` with a
+     non-empty replayed tail (a wave inside a build's window stages no
+     deletes, which would refuse the handoff); the first handoff raced
+     (``tasks.compaction.handoff``: one rebuild), one quantum crashed
+     (``tasks.quantum``: ``fault_restarts`` 1); 6b's read-backs and host
+     mirrors equal to the device counts after every handoff and at the
+     end, the pinned batch equal to its pre-phase results; then
+     ``vacuum`` (its slots = the dead rows below ``gc_ts``) and a wave of
+     creates into the reclaimed slots, read back; then
+     ``FastRestartCache``: hold, drop the database, restart on the card,
+     the batch bit for bit, one more wave; a MAINT line;
   7. nearest — a second store (the JAX package's hybrid vector+graph
      workload at one machine's size: 4 M vector-indexed docs) and batches of
      ``Nearest``-rooted queries in both budget modes, equal to
@@ -85,7 +100,9 @@ Phases, each printed on its own line:
      BST's item table with the train batch's histories as bags), and
      ``segment_spmm`` against the model's ``common.spmm`` on cora;
  10. kernels — each kernel at the inputs the main path gave it: its
-     launches during phases 5-9c (by path, ``write`` among them), its time beside the plain version's, the
+     launches during phases 5-9c and 11b (by path: ``write``, and
+     ``maintenance`` for 6c and 11b together, among them), its time
+     beside the plain version's, the
      bound and a library call, as one JSON line; a kernel under 0.5 ms and
      its library call are timed again as 20 calls in one CUDA graph
      (``graph_ms``: no host time inside), and its wrapper's host time a
@@ -103,16 +120,29 @@ Phases, each printed on its own line:
      the CPU (every store field, host mirror, event and wave record equal
      bit for bit); the film KG loaded through the write path onto 4
      shards, edited by a write wave, and queried through a 4-shard mesh
-     against set computations.
+     against set computations;
+ 11b. durability (run after 9c, before phase 10, so that its launches
+     count) — a film KG loaded through the write path into a database
+     whose ``ReplicationLog`` ships every wave to an ``ObjectStore`` with
+     its WAL on disk: ``fail_next`` at two waves of the load and a dropped
+     ship round (``replication.ship.drop``) after it, then
+     ``sweeper_task`` to lag 0, ``t_R`` never ahead of an unshipped
+     entry; the ObjectStore reloaded from its WAL; ``consistent_recover``
+     and ``best_effort_recover`` onto the card, each equal to the source
+     by logical identity (vertices by key with their attributes, edge
+     sets) and its q1 / q3 counts, and to the same recovery on the CPU
+     field by field; then ``export_shared`` and two ``attach_shared``
+     onto the card (a write to one leaves the other); a RECOVER line.
 
 Each of phases 5-9b sets the kernels' launch counts to 0 just before its
 timed batches, calls or steps (per budget mode or cell) and reads them just
 after (the write phase around the whole phase: its launches are its
-read-back queries'); phase 9c does so around its kernel calls.
+read-back queries'; phases 6c and 11b likewise, into one count); phase
+9c does so around its kernel calls.
 Any failed check raises, so the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 before
-printing any result.  ``--rehearse`` runs phases 4-9c and 11 at a tiny size
-on the CPU (plain kernel versions, no build) and then exits 1.
+printing any result.  ``--rehearse`` runs phases 4-9c, 11b and 11 at a
+tiny size on the CPU (plain kernel versions, no build) and then exits 1.
 """
 from __future__ import annotations
 
@@ -150,6 +180,16 @@ WRITE_FULL = dict(waves=72, ingest=32, cast=192, update=128, delete=32,
                   readback_every=8, pool=256)
 WRITE_REHEARSE = dict(waves=12, ingest=4, cast=16, update=16, delete=4,
                       readback_every=4, pool=32)
+# phase 6c: at most this many waves to see both kinds handed off in the
+# background (the index delta crosses its watermark last; PERF.md §5 has
+# the count), and at most this many reclaimed slots, each of which a
+# create reuses
+MAINT_FULL = dict(maint_waves=60, reuse=16_384)
+MAINT_REHEARSE = dict(maint_waves=40, reuse=4_096)
+# phase 11b: the film KG that loads, replicates and recovers through the
+# write path (host-bound: a vertex probe a create; PERF.md §5)
+DUR_FULL = dict(n_films=5_000, n_actors=4_000, n_directors=250, n_genres=30)
+DUR_REHEARSE = dict(n_films=300, n_actors=240, n_directors=20, n_genres=8)
 # the hybrid vector+graph workload (benchmarks/bench_vector.py): 16 docs a
 # tag, two doc.tag edges a doc; d = the a1-kg payload width, one machine's
 # 4 M vector-indexed docs
@@ -1462,7 +1502,7 @@ def phase_load(dev, kg_sizes, cfg_kw, reduced=("n_shards 256 -> 1",)):
                           else None),
         vertices=n_v, edges=int(kg.edges["src"].shape[0]), config=cfg_kw,
         reduced="; ".join(reduced))
-    return kg
+    return kg, secs
 
 
 def _same(a, b, what):
@@ -2132,7 +2172,9 @@ def phase_write(kg, dev, sz, launches, rec=None, caps_kw=A1_CAPS):
     """The a1-kg ``update`` cell: ``sz["waves"]`` mutation waves through
     ``GraphDB.write(txns)`` on phase 5's store, a quarter of each wave
     staged before the previous wave commits; read-backs every
-    ``readback_every`` waves and after the last; one WRITE line."""
+    ``readback_every`` waves and after the last; one WRITE line.  Returns
+    what phase 6c goes on with: the op generator and its truth, the
+    read-back batch, its caps and the commit times."""
     import numpy as np
     import torch
     from repro_torch.core.query import planner as planner_mod
@@ -2273,6 +2315,273 @@ def phase_write(kg, dev, sz, launches, rec=None, caps_kw=A1_CAPS):
           f"the waves ran the inline backstops {sorted(kinds)}, not both")
     say("WRITE_PARITY", readbacks_equal_to_ref=True,
         pinned_snapshot_equal=True)
+    return dict(load=load, batch=batch, caps=caps, commit_ms=cm_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: background compaction, tasks, fault sites, vacuum, fast restart
+# ---------------------------------------------------------------------------
+
+def _mirrors_match(db, what):
+    for c in ("dl_count", "il_count", "xd_count"):
+        check(getattr(db, c).tolist() == getattr(db.store, c).tolist(),
+              f"{what}: the host's {c} differs from the device count")
+
+
+def _in_window(tq) -> bool:
+    """Whether a background compaction has built its shadow and waits for
+    its handoff (a wave now lands in the replayed tail)."""
+    return any("handle" in t.state for t in tq._q)
+
+
+class _MaintTimer:
+    """Times ``begin_compaction``, ``try_handoff`` and the inline
+    compactions of one database (each to ``synchronize()``), and the tail
+    each handoff replays."""
+
+    def __init__(self, db, dev):
+        self.db, self.dev = db, dev
+        self.builds, self.handoffs, self.inline = [], [], []
+        self.wave = -1
+        for name in ("begin_compaction", "try_handoff", "run_compaction",
+                     "run_index_compaction"):
+            setattr(db, name, self._wrap(name, getattr(db, name)))
+
+    def _wrap(self, name, fn):
+        def run(*a):
+            db = self.db
+            if name == "try_handoff":
+                h = a[0]
+                tails = {}
+                if "edges" in h["kinds"]:
+                    tails["edges"] = int((db.dl_count - h["marks"]["dl"]).sum()
+                                         + (db.il_count
+                                            - h["marks"]["il"]).sum())
+                if "index" in h["kinds"]:
+                    tails["index"] = int((db.xd_count
+                                          - h["marks"]["xd"]).sum())
+            _sync(self.dev)
+            t0 = time.perf_counter()
+            out = fn(*a)
+            _sync(self.dev)
+            secs = time.perf_counter() - t0
+            if name == "begin_compaction":
+                self.builds.append(dict(kinds=list(a[0]), seconds=secs,
+                                        wave=self.wave))
+            elif name == "try_handoff":
+                self.handoffs.append(dict(ok=out, tails=tails, seconds=secs,
+                                          wave=self.wave))
+            else:
+                self.inline.append(dict(kind=name, seconds=secs,
+                                        wave=self.wave))
+            return out
+        return run
+
+    def restore(self):
+        for name in ("begin_compaction", "try_handoff", "run_compaction",
+                     "run_index_compaction"):
+            delattr(self.db, name)
+
+    def handed_off(self) -> set:
+        """The kinds handed off with a non-empty replayed tail."""
+        return {k for h in self.handoffs for k, ok in h["ok"].items()
+                if ok and h["tails"].get(k, 0) > 0}
+
+
+def _reclaimable(db) -> set:
+    """Gids of the rows ``vacuum`` may reclaim now: typed, dead at or
+    before ``gc_ts``, below their shard's fresh-slot mark."""
+    import numpy as np
+    from repro_torch.core.addressing import gid_of
+    S, cap_v = db.cfg.n_shards, db.cfg.cap_v
+    vt = db.store.vtype.cpu().numpy().reshape(S, cap_v)
+    dl = db.store.v_delete.cpu().numpy().reshape(S, cap_v)
+    out = set()
+    for s in range(S):
+        dead = np.flatnonzero((vt[s] >= 0) & (dl[s] <= db.gc_ts()))
+        out |= {gid_of(s, int(x), S) for x in dead if x < db.v_next[s]}
+    return out
+
+
+def phase_maintenance(kg, dev, sz, state, launches, load_s, rec=None):
+    """Phase 6c on phase 6b's written store: a task queue and a fault
+    injector attached, a pre-phase ``read_ts`` pinned, further waves of
+    6b's mix with one ``pump(1)`` between waves until both ``edges`` and
+    ``index`` were handed off in the background with a non-empty replayed
+    tail (a wave inside a build's window stages no deletes: a structural
+    mutation there refuses the handoff by design); the first handoff raced
+    (one rebuild), one quantum crashed.  Read-backs after every handoff and
+    at the end; then ``vacuum`` against the dead rows below ``gc_ts`` and a
+    wave that reuses the reclaimed slots; then ``FastRestartCache``: hold,
+    drop the database, restart on the card, the batch bit for bit and one
+    more wave.  One MAINT line."""
+    import numpy as np
+    import torch
+    from repro_torch.core import faults as faults_mod
+    from repro_torch.core.recovery import FastRestartCache
+    from repro_torch.core.tasks import TaskQueue
+    from repro_torch.core.writes import CreateVertex
+    from repro_torch.kernels import _cuda
+    db, load, batch, caps = kg.db, state["load"], state["batch"], state["caps"]
+    only = rec.only if rec is not None else None
+    if rec is not None:
+        rec.only = set()
+    _cuda.reset_launches()
+    t_phase = time.perf_counter()
+    tq = db.task_queue = TaskQueue(db)
+    db.faults = inj = faults_mod.FaultInjector(seed=6)
+    inj.inject("tasks.compaction.handoff", action="race", times=(0,))
+    inj.inject("tasks.quantum", action="raise", times=(1,))
+    ts1 = db.clock
+    rec1 = db.query(batch, caps=caps, fused=True, backend="kernel")
+    _same(rec1, db.query(batch, caps=caps, fused=True, backend="ref"),
+          "maintenance batch before the waves")
+    db.active_query_ts.append(ts1)
+    timer = _MaintTimer(db, dev)
+    commit_s, pump_s, counts, readbacks, checked = [], [], {}, 0, [0, 0]
+
+    def readback(what):
+        nonlocal readbacks
+        n_v, n_e = _write_readback(load, batch, rec1, ts1, caps, dev)
+        _mirrors_match(db, what)
+        readbacks += 1
+        checked[0] += n_v
+        checked[1] += n_e
+    wave = 0
+    while timer.handed_off() != {"edges", "index"}:
+        check(wave < sz["maint_waves"], "maintenance: after "
+              f"{wave} waves the kinds handed off with a tail are "
+              f"{sorted(timer.handed_off())}, not edges and index")
+        timer.wave = wave
+        plan = load.plan()
+        kinds = [k for k in plan["kinds"]
+                 if not (k == "delete" and _in_window(tq))]
+        staged = [x for x in (load.stage(k, plan) for k in kinds) if x]
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = db.write([t for t, _ in staged])
+        _sync(dev)
+        commit_s.append(time.perf_counter() - t0)
+        load.settle([m for _, m in staged], res.statuses, res.reasons,
+                    counts)
+        n_ok = sum(all(h["ok"].values()) for h in timer.handoffs)
+        t0 = time.perf_counter()
+        tq.pump(1)
+        _sync(dev)
+        pump_s.append(time.perf_counter() - t0)
+        if sum(all(h["ok"].values()) for h in timer.handoffs) > n_ok:
+            readback(f"maintenance wave {wave}")
+        wave += 1
+    timer.wave = wave
+    tq.drain()
+    readback("maintenance, queue drained")
+    db.active_query_ts.remove(ts1)
+    check(tq.fault_restarts == 1, f"fault_restarts {tq.fault_restarts}")
+    check(sorted(inj.fired) == [("tasks.compaction.handoff", 0, "race"),
+                                ("tasks.quantum", 1, "raise")]
+          and db.stats["compaction_rebuilds"] >= 1,
+          f"the raced handoff did not rebuild: {inj.fired}")
+    db.task_queue = db.faults = None
+    timer.restore()
+    timer.db = tq.db = None
+    restarts = tq.fault_restarts
+
+    # vacuum: every dead row below gc_ts, and a wave that reuses them
+    want = _reclaimable(db)
+    S = db.cfg.n_shards
+    free0 = {(s, x) for s in range(S) for x in db.v_free[s]}
+    _sync(dev)
+    t0 = time.perf_counter()
+    n_vac = db.vacuum()
+    _sync(dev)
+    vac_s = time.perf_counter() - t0
+    got = {s + S * x for s in range(S) for x in db.v_free[s]
+           if (s, x) not in free0}
+    check(n_vac == len(want) and got == want and n_vac > 0,
+          f"vacuum reclaimed {n_vac} slots, {len(want)} rows are dead "
+          "below gc_ts")
+    check(n_vac <= sz["reuse"], f"{n_vac} reclaimed slots, over the "
+          f"{sz['reuse']} creates the reuse wave makes")
+    txns = []
+    for part in _chunks_of(range(n_vac), 8):
+        t = db.create_transaction()
+        db.write([CreateVertex("actor", 400_000_000 + k,
+                               {"dob": 7_000_000 + k}) for k in part],
+                 txn=t)
+        txns.append(t)
+    res = db.write(txns)
+    check(res.statuses == ["COMMITTED"] * len(txns),
+          "the wave of creates into reclaimed slots aborted")
+    reused = {g for t in txns for g, *_ in t.create_v}
+    check(reused == want, "the creates did not take the reclaimed slots")
+    for g in reused:                  # a reclaimed film's gid is an actor's
+        load.deleted.pop(g, None)
+        load.dangling.pop(g, None)
+        load.films.pop(g, None)
+    for t in txns:
+        for g, _, key, _, i in t.create_v:
+            load.actors[g] = [key, int(i[load.col["dob"]])]
+    now = db.clock
+    rec_now = db.query(batch, caps=caps, fused=True, backend="kernel")
+    n_v, n_e = _write_readback(load, batch, rec_now, now, caps, dev)
+    checked[0] += n_v
+    checked[1] += n_e
+
+    # fast restart: hold, drop the database, restart on the card
+    stats = dict(db.stats)
+    cache = FastRestartCache()
+    _sync(dev)
+    t0 = time.perf_counter()
+    cache.hold("a1", db)
+    hold_s = time.perf_counter() - t0
+    store_bytes = db.store.nbytes()
+    kg.db = load.db = db = None
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    db = cache.restart("a1", device=dev)
+    _sync(dev)
+    restart_s = time.perf_counter() - t0
+    cache.drop("a1")
+    check(db.store.device.type == dev.type, "the restart left the card")
+    kg.db = load.db = db
+    _same(db.query(batch, caps=caps, fused=True, backend="kernel"), rec_now,
+          "the restarted store's batch")
+    _mirrors_match(db, "restarted store")
+    plan = load.plan()
+    staged = [x for x in (load.stage(k, plan) for k in plan["kinds"]
+                          if k != "delete") if x]
+    res = db.write([t for t, _ in staged])
+    load.settle([m for _, m in staged], res.statuses, res.reasons, counts)
+    check("COMMITTED" in res.statuses, "no write committed after restart")
+    n_v, n_e = _write_readback(load, batch, rec_now, now, caps, dev)
+    checked[0] += n_v
+    checked[1] += n_e
+    launches["maintenance"] = dict(_cuda.LAUNCHES)
+    if rec is not None:
+        rec.only = only
+    cm = np.asarray(commit_s) * 1e3
+    say("MAINT", cell="maintenance/update", waves=wave,
+        committed=counts.get("committed", 0),
+        aborted={k: v for k, v in counts.items() if k != "committed"},
+        builds=timer.builds, handoffs=timer.handoffs,
+        handed_off_with_tail=sorted(timer.handed_off()),
+        bg_compactions=stats["bg_compactions"],
+        rebuilds=stats["compaction_rebuilds"],
+        fault_restarts=restarts, fired=inj.fired,
+        inline_backstops=timer.inline,
+        commit_ms_p50=float(np.median(cm)),
+        commit_ms_p99=float(np.percentile(cm, 99)),
+        write_commit_ms_p50=float(np.median(state["commit_ms"])),
+        write_commit_ms_p99=float(np.percentile(state["commit_ms"], 99)),
+        pump_ms_p50=float(np.median(pump_s) * 1e3),
+        pump_ms_max=float(np.max(pump_s) * 1e3),
+        readbacks=readbacks, checked_vertices=checked[0],
+        checked_edges=checked[1], vacuum_slots=n_vac, vacuum_s=vac_s,
+        reused_slots=len(reused), hold_s=hold_s, restart_s=restart_s,
+        load_s=load_s, store_bytes=store_bytes,
+        phase_seconds=time.perf_counter() - t_phase,
+        reduced="n_shards 256 -> 1")
 
 
 def _agree_local(m, loc, what) -> int:
@@ -3544,6 +3853,8 @@ def _same_db(a, b, what):
     """Two databases' stores (every field, bit for bit), host mirrors and
     wave records are equal."""
     import numpy as np
+    if os.path.join(ROOT, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_write_script as script
     from repro_torch.core.store import FIELDS
     for name in FIELDS:
@@ -3699,6 +4010,214 @@ def _small_nearest_reference(dev) -> int:
                       f"small nearest mesh, budget={budget}")
             n += len(want)
     return n
+
+
+# ---------------------------------------------------------------------------
+# phase 11b: replication, recovery and shared attach
+# ---------------------------------------------------------------------------
+
+FILM_SIDE = {"film.director": "in", "film.actor": "out", "film.genre": "out"}
+
+
+def _dur_cfg(sz) -> dict:
+    """One shard at a1-kg's widths and delta caps, sized for the KG."""
+    n_v = sum(sz.values())
+    return dict(A1_SHARD, cap_v=n_v + 4_096, cap_idx=n_v + 4_096,
+                cap_e=10 * sz["n_films"] + 4_096)
+
+
+def _logical(db, ts):
+    """A database's content by logical identity at ``ts``: {(vtype, key):
+    (f32 row bits, i32 row)} and the set of (src vtype, src key, etype, dst
+    vtype, dst key) edges (read from the film side, which every edge type
+    of the film KG touches)."""
+    import numpy as np
+    from repro_torch.core.addressing import gid_of
+    S, cap_v = db.cfg.n_shards, db.cfg.cap_v
+    vt = db.store.vtype.cpu().numpy()
+    key = db.store.vkey.cpu().numpy()
+    cre = db.store.v_create.cpu().numpy()
+    dele = db.store.v_delete.cpu().numpy()
+    rows = np.flatnonzero((vt >= 0) & (cre <= ts) & (ts < dele))
+    gids = [gid_of(int(r) // cap_v, int(r) % cap_v, S) for r in rows]
+    ident = {g: (int(vt[r]), int(key[r])) for g, r in zip(gids, rows)}
+    f, i, alive = _rows_many(db, gids, ts)
+    check(bool(alive.all()), "logical dump: a live row reads dead")
+    verts = {ident[g]: (tuple(f[j].view(np.int32).tolist()),
+                        tuple(i[j].tolist())) for j, g in enumerate(gids)}
+    films = [g for g in gids if ident[g][0] == db.vt("film").type_id]
+    edges = set()
+    for name, direction in FILM_SIDE.items():
+        et = db.et(name).type_id
+        for film, nbrs in _edge_sets(db, films, direction, et, ts).items():
+            for n in nbrs:
+                s_, d_ = (film, n) if direction == "out" else (n, film)
+                edges.add((*ident[s_], et, *ident[d_]))
+    return verts, edges
+
+
+def _recovered_counts(db, dev, kg):
+    """q1 and q3 counts and fast-fail flags of a film KG's first directors
+    and actors, on the kernel path, equal to ``backend="ref"``."""
+    from repro_torch.core.query.executor import QueryCaps
+    dk = [int(k) for k in kg.director_keys[:32]]
+    ak = [int(k) for k in kg.actor_keys[:32]]
+    qs = [q1(d) for d in dk] + [q3(d, a) for d, a in zip(dk, ak)]
+    caps = QueryCaps(frontier=4096, expand=16384, results=64)
+    res = db.query(qs, caps=caps, fused=True, backend="kernel")
+    _same(res, db.query(qs, caps=caps, fused=True, backend="ref"),
+          "a recovered store's batch")
+    check(not res.failed_q.all(), "a recovered store's batch fast-failed")
+    return res.counts.tolist(), res.failed_q.tolist()
+
+
+def phase_durability(dev, sz, launches):
+    """Phase 11b: a film KG loaded through ``load_film_kg`` into a database
+    whose replication log ships every wave (WAL on disk); ``fail_next`` at
+    two points of the load and one dropped ship round after it, then the
+    sweeper to lag 0, ``t_R`` never ahead of what shipped.  The ObjectStore
+    reloaded from its WAL; ``consistent_recover`` and
+    ``best_effort_recover`` onto the card, each equal to the source by
+    logical identity and to the same recovery on the CPU field by field;
+    then ``export_shared`` / ``attach_shared`` onto the card.  One RECOVER
+    line; the launches join phase 6c's (the ``maintenance`` path)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import faults as faults_mod
+    from repro_torch.core import recovery
+    from repro_torch.core.addressing import StoreConfig
+    from repro_torch.core.graphdb import GraphDB
+    from repro_torch.core.replication import (ObjectStore, ReplicationLog,
+                                              sweeper_task)
+    from repro_torch.core.tasks import TaskQueue
+    from repro_torch.core.writes import UpdateVertex
+    from repro_torch.data.kg import load_film_kg
+    from repro_torch.kernels import _cuda
+    _cuda.reset_launches()
+    t_phase = time.perf_counter()
+    cfg = StoreConfig(**_dur_cfg(sz))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_os_")
+    try:
+        path = os.path.join(tmp, "objectstore")
+        store = ObjectStore(path)
+        log = ReplicationLog(store, ship_waves=True)
+        db = GraphDB(cfg, replication_log=log, device=dev)
+        log.db = db
+        db.faults = inj = faults_mod.FaultInjector(seed=11)
+        waves, max_lag = [0], [0]
+        cuts = {3: 1, 10: 2}       # wave -> ObjectStore writes that fail
+
+        def t_r_ok(what):
+            t_r = store.get_meta("g.t_R", 0)
+            check(all(e.ts > t_r for e in log.entries),
+                  f"{what}: t_R {t_r} is ahead of an unshipped entry")
+            max_lag[0] = max(max_lag[0], log.lag())
+        append = log.append_wave
+
+        def append_wave(rec):
+            waves[0] += 1
+            if waves[0] in cuts:              # the two cuts of the load
+                store.fail_next(cuts[waves[0]])
+            append(rec)
+            t_r_ok(f"wave {waves[0]}")
+        log.append_wave = append_wave
+        _sync(dev)
+        t0 = time.perf_counter()
+        kg = load_film_kg(**sz, seed=2, db=db)
+        _sync(dev)
+        load_s = time.perf_counter() - t0
+        # the last wave's ship round is dropped: the sweeper has work
+        inj.inject("replication.ship.drop", action="race",
+                   times=(inj.visits("replication.ship.drop"),))
+        f0 = kg.n_directors + kg.n_actors + kg.n_genres
+        db.write([UpdateVertex(f0 + k, "film", {"gross": 0.5 + k})
+                  for k in range(64)])
+        check(log.lag() > 0, "the dropped ship round left no lag")
+        lag_before = log.lag()
+        tq = TaskQueue(db)
+        tq.enqueue(sweeper_task(log, budget=4_096))
+        sweeps = 0
+        while tq.pending():
+            tq.pump(1)
+            sweeps += 1
+            t_r_ok(f"sweep {sweeps}")
+        t_r = store.get_meta("g.t_R")
+        check(log.lag() == 0 and t_r == db.clock,
+              f"the sweeper left lag {log.lag()}, t_R {t_r} of {db.clock}")
+        wal_bytes = sum(os.path.getsize(os.path.join(path, f))
+                        for f in os.listdir(path))
+        again = ObjectStore(path)
+        check(again.tables == store.tables and again.meta == store.meta,
+              "the ObjectStore reloaded from its WAL differs")
+        n_v = sum(sz.values())
+        n_e = int(kg.edges["src"].shape[0])
+        src = {"consistent": _logical(db, t_r)}
+        src["best_effort"] = (src["consistent"] if t_r == db.clock
+                              else _logical(db, db.clock))
+        src_counts = _recovered_counts(db, dev, kg)
+        modes, recovered = {}, {}
+        for mode, fn in (("consistent", recovery.consistent_recover),
+                         ("best_effort", recovery.best_effort_recover)):
+            _sync(dev)
+            t0 = time.perf_counter()
+            r = fn(again, db, cfg, device=dev)
+            _sync(dev)
+            secs = time.perf_counter() - t0
+            check(r.store.device.type == dev.type,
+                  f"{mode} recovery left the device")
+            check(_logical(r, r.clock) == src[mode],
+                  f"{mode} recovery differs from the source")
+            check(_recovered_counts(r, dev, kg) == src_counts,
+                  f"{mode} recovery's q1 / q3 counts or flags differ")
+            t0 = time.perf_counter()
+            on_cpu = fn(again, db, cfg, device="cpu")
+            cpu_s = time.perf_counter() - t0
+            _same_db(r, on_cpu, f"{mode} recovery on the card and the CPU")
+            modes[mode] = dict(seconds=secs, rows_per_s=(n_v + n_e) / secs,
+                               cpu_seconds=cpu_s)
+            recovered[mode] = r
+            del on_cpu
+        cache = recovery.FastRestartCache()
+        cache.hold("recovered", recovered["consistent"])
+        man = cache.export_shared("recovered")
+        shm_free = shutil.disk_usage("/dev/shm").free
+        try:
+            _sync(dev)
+            t0 = time.perf_counter()
+            a = recovery.attach_shared(man, device=dev)
+            _sync(dev)
+            attach_s = time.perf_counter() - t0
+            b = recovery.attach_shared(man, device=dev)
+        finally:
+            cache.drop("recovered")
+        for x in (a, b):
+            check(x.store.device.type == dev.type, "an attach left the card")
+            check(_logical(x, x.clock) == src["consistent"],
+                  "an attached store differs from the source")
+        a.write([UpdateVertex(0, "director", {"dob": 1}),
+                 UpdateVertex(1, "director", {"dob": 2})])
+        check(_logical(b, b.clock) == src["consistent"],
+              "a write to one attached store reached the other")
+        check(_recovered_counts(b, dev, kg) == src_counts,
+              "an attached store's q1 / q3 counts or flags differ")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k, v in _cuda.LAUNCHES.items():
+        launches.setdefault("maintenance", {}).setdefault(k, 0)
+        launches["maintenance"][k] += v
+    say("RECOVER", vertices=n_v, edges=n_e, waves=waves[0],
+        wal_bytes=wal_bytes, t_R=t_r, clock=db.clock, lag_before_sweep=
+        lag_before, max_lag=max_lag[0], sweeps=sweeps, lag=log.lag(),
+        fired=inj.fired, load_s=load_s, modes=modes,
+        export_bytes=max(o + int(np.prod(sh)) * 4 for o, sh, _ in
+                         man["fields"].values()), attach_s=attach_s,
+        dev_shm_free_bytes=shm_free, config=_dur_cfg(sz),
+        phase_seconds=time.perf_counter() - t_phase,
+        reduced="n_shards 256 -> 1; 14.5 M vertices -> "
+                f"{n_v:,} (the write path's host time: a vertex probe a "
+                "create, two header reads an edge)")
 
 
 def _events_ms(fn, n: int = 20) -> float:
@@ -4268,6 +4787,8 @@ def phase_kernel_report(launches, best, extra=None):
                                    "searchsorted_left_ranged")),
                        ("write", ("searchsorted_left_ranged", "expand",
                                   "dedup_compact_rows", "sort_rows")),
+                       ("maintenance", ("searchsorted_left_ranged", "expand",
+                                        "dedup_compact_rows", "sort_rows")),
                        ("nearest", ("knn_topk", "dedup_compact_rows")),
                        ("nearest_shared", ("knn_topk", "sort_pairs")),
                        ("mesh", ("searchsorted_left", "expand",
@@ -4365,8 +4886,8 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
     ap.add_argument("--rehearse", action="store_true",
-                    help="without a GPU: phases 4-9c and 11 at a tiny size "
-                         "on the CPU, then exit 1")
+                    help="without a GPU: phases 4-9c, 11b and 11 at a "
+                         "tiny size on the CPU, then exit 1")
     args = ap.parse_args(argv)
     import torch
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -4377,19 +4898,19 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 1
         dev = torch.device("cpu")
-        kg = phase_load(dev, KG_REHEARSE, dict(A1_SHARD, cap_v=20_000,
-                                               cap_e=80_000, cap_idx=20_000,
-                                               cap_delta=256,
-                                               cap_idx_delta=256))
+        kg, load_s = phase_load(dev, KG_REHEARSE, dict(
+            A1_SHARD, cap_v=20_000, cap_e=80_000, cap_idx=20_000,
+            cap_delta=256, cap_idx_delta=256))
         caps = dict(A1_CAPS, frontier=256, expand=1024)
         launches = {}
         batches, results, peak = phase_serve(kg, dev, 1, launches, caps)
         phase_serve_shared(kg, dev, batches, results, peak, launches, caps)
-        phase_write(kg, dev, WRITE_REHEARSE, launches, caps_kw=caps)
+        state = phase_write(kg, dev, WRITE_REHEARSE, launches, caps_kw=caps)
+        phase_maintenance(kg, dev, MAINT_REHEARSE, state, launches, load_s)
         phase_nearest(dev, NEAREST_REHEARSE, 1, launches, caps)
-        kg = phase_load(dev, KG_REHEARSE, dict(A1_MESH, cap_v=5_000,
-                                               cap_e=20_000, cap_idx=5_000),
-                        MESH_REDUCED)
+        kg, _ = phase_load(dev, KG_REHEARSE, dict(A1_MESH, cap_v=5_000,
+                                                  cap_e=20_000, cap_idx=5_000),
+                           MESH_REDUCED)
         phase_mesh(kg, dev, 1, launches, dict(A1_MESH_CAPS, frontier=256,
                                               expand=1024, bucket=256))
         rec = Recorder()
@@ -4398,6 +4919,7 @@ def main(argv=None) -> int:
         phase_lm_train(dev, danube.REDUCED, LM_REHEARSE, launches, rec)
         phase_zoo(dev, ZOO_REHEARSE, launches, rec)
         rec.restore()
+        phase_durability(dev, DUR_REHEARSE, launches)
         phase_small_reference(dev)
         print("chip_smoke: CPU rehearsal finished; no GPU result",
               file=sys.stderr)
@@ -4408,18 +4930,19 @@ def main(argv=None) -> int:
     phase_build()
     phase_kernel_checks()
     if not args.quick:
-        kg = phase_load(dev, KG_FULL, A1_SHARD)
+        kg, load_s = phase_load(dev, KG_FULL, A1_SHARD)
         rec = Recorder()
         launches = {}
         batches, results, peak = phase_serve(kg, dev, BATCHES, launches)
         phase_serve_shared(kg, dev, batches, results, peak, launches)
         del batches, results
-        phase_write(kg, dev, WRITE_FULL, launches, rec)
-        del kg
+        state = phase_write(kg, dev, WRITE_FULL, launches, rec)
+        phase_maintenance(kg, dev, MAINT_FULL, state, launches, load_s, rec)
+        del kg, state
         torch.cuda.empty_cache()
         phase_nearest(dev, NEAREST_FULL, BATCHES, launches)
         torch.cuda.empty_cache()
-        kg = phase_load(dev, KG_MESH, A1_MESH, MESH_REDUCED)
+        kg, _ = phase_load(dev, KG_MESH, A1_MESH, MESH_REDUCED)
         rec.only = {"searchsorted_left"}      # the earlier paths' inputs stay
         phase_mesh(kg, dev, BATCHES, launches)
         del kg
@@ -4429,6 +4952,7 @@ def main(argv=None) -> int:
         phase_lm_train(dev, danube.FULL, LM_FULL, launches, rec)
         phase_zoo(dev, ZOO_FULL, launches, rec)
         rec.restore()
+        phase_durability(dev, DUR_FULL, launches)
         phase_kernel_report(launches, rec.best, rec.extra)
         phase_small_reference(dev)
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,13 @@ objects and commit in batches through :meth:`GraphDB.write`
 implicit one committed at once (§3).  A store can also be carried across
 (:meth:`GraphDB.from_numpy`) or laid out by :mod:`repro_torch.data.kg`.
 
-Not here yet: background compaction (``begin_compaction``,
-``try_handoff``, ``vacuum``; an attached task queue raises) and the
-replication log (ROADMAP queue 1, items 9 and 10).  The inline compactions
-that the write wave's capacity backstop calls are here.
+Maintenance: the inline compactions the write wave's capacity backstop
+calls, the two-phase background compaction (``begin_compaction`` builds a
+shadow, ``try_handoff`` merges it and replays the delta tail) that an
+attached task queue schedules, and ``vacuum``.  Durability: a
+``ReplicationLog`` passed as ``replication_log=`` receives every committed
+wave record (``core/replication.py``); ``core/recovery.py`` rebuilds or
+re-attaches a database.
 
 Every database lives on one device, ``cuda`` unless the caller names
 another; without a GPU the default raises instead of carrying on on the CPU.
@@ -20,6 +23,7 @@ another; without a GPU the default raises instead of carrying on on the CPU.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import warnings
 from typing import Optional, Sequence
 
@@ -30,14 +34,12 @@ from repro_torch.core import edges as edges_mod
 from repro_torch.core import index as index_mod
 from repro_torch.core import txn as txn_mod
 from repro_torch.core import writes as writes_mod
-from repro_torch.core.addressing import NULL, StoreConfig, gid_of
+from repro_torch.core.addressing import NULL, TS_INF, StoreConfig, gid_of
 from repro_torch.core.backend import resolve_device
 from repro_torch.core.catalog import Catalog, EdgeType, VertexType
-from repro_torch.core.store import GraphStore, make_store, store_from_numpy
+from repro_torch.core.store import (GraphStore, make_store, replay_log_tail,
+                                    store_from_numpy)
 from repro_torch.core.writes import CapacityError  # noqa: F401  (re-export)
-
-BACKGROUND_ITEM = "ROADMAP queue 1 item 9 (core/tasks.py)"
-REPLICATION_ITEM = "ROADMAP queue 1 item 10 (core/replication.py)"
 
 
 class GraphDB:
@@ -49,9 +51,6 @@ class GraphDB:
                  replication_log=None, backend: Optional[str] = None,
                  device=None, store: Optional[GraphStore] = None):
         cfg.validate()
-        if replication_log is not None:
-            raise NotImplementedError(
-                f"replication_log is not ported yet: {REPLICATION_ITEM}")
         self.cfg = cfg
         self.caps = caps or txn_mod.BatchCaps()
         self.device = resolve_device(device)
@@ -69,8 +68,15 @@ class GraphDB:
         if graph not in self.catalog.tenants[tenant]:
             self.catalog.create_graph(tenant, graph)
         self.tenant, self.graph = tenant, graph
-        # -- coordinator metadata (host-side) ---------------------------------
-        S = cfg.n_shards
+        self._init_coordinator()
+        self.replication_log = replication_log       # recovery hook (§4)
+
+    def _init_coordinator(self) -> None:
+        """The coordinator's host state of a fresh database: every
+        attribute besides the config, device, store and catalog (shared by
+        ``__init__`` and ``recovery._wire_db``, which then restores the
+        held mirrors)."""
+        S = self.cfg.n_shards
         self.clock: int = 1                          # FaRMv2 global clock
         self.v_next = np.zeros(S, np.int64)          # next fresh slot per shard
         self.v_free: list[list[int]] = [[] for _ in range(S)]   # vacuumed slots
@@ -83,19 +89,25 @@ class GraphDB:
         self._vx_pos: dict[int, tuple[int, int]] = {}  # gid -> (pos, type_id)
         self.replication_log = None                  # recovery hook (§4)
         self.stats = {"commits": 0, "aborts": 0, "compactions": 0,
-                      "write_waves": 0, "vindex_compactions": 0}
+                      "write_waves": 0, "bg_compactions": 0,
+                      "compaction_rebuilds": 0, "vindex_compactions": 0}
         self.active_query_ts: list[int] = []         # pins for GC (§2.2)
-        # -- compaction: structural epochs (a background shadow built at
-        # epoch E may be handed off only while E holds), the task queue the
-        # serving tier attaches, and the fill that schedules a compaction
+        # -- background compaction (§2.2 concurrent GC; §3.3 tasks) --------
+        # Structural epochs: a shadow built at epoch E may be handed off
+        # only while the epochs it depends on are still E (deletes
+        # tombstone CSR/index positions that the fold moved; a concurrent
+        # inline compaction makes the shadow's base stale)
         self.epochs = {"delete_e": 0, "delete_v": 0,
                        "compact_edges": 0, "compact_index": 0}
-        self.task_queue = None
-        self.compaction_watermark = 0.5
+        self.task_queue = None              # attached by the serving tier
+        self.compaction_watermark = 0.5     # delta fill fraction that triggers
+        self._bg_compaction_pending = False
+        self.faults = None                  # FaultInjector (chaos checks only)
         # -- fleet replication (§4: primary-backup over committed waves) ---
         self.config_epoch = 0               # membership epoch last adopted
         self.wave_seq = 0                   # last wave applied here (frontier)
         self.wave_log: collections.deque = collections.deque(maxlen=512)
+        self.wave_inbox: collections.deque = collections.deque()
         self.applied_rids: collections.OrderedDict = collections.OrderedDict()
         self.fleet_pins: list[int] = []     # frontend-of-record snapshot pins
 
@@ -389,11 +401,148 @@ class GraphDB:
         """Called after every write wave: with a task queue attached,
         crossing the watermark schedules the background compaction; without
         one, the inline overflow backstop alone guarantees capacity."""
-        if self.task_queue is None:
+        if self.task_queue is None or self._bg_compaction_pending:
             return
         if self._kinds_needed():
-            raise NotImplementedError(
-                f"background compaction is not ported yet: {BACKGROUND_ITEM}")
+            from repro_torch.core.tasks import background_compaction_task
+            self._bg_compaction_pending = True
+            self.task_queue.enqueue(background_compaction_task())
+
+    # -- background compaction: build a shadow, hand it off (§2.2) ----------
+    def begin_compaction(self, kinds=("edges", "index")) -> dict:
+        """Phase 1 of background compaction: build compacted shadow state.
+
+        Folds the delta logs into base CSR / index at ``gc_ts()``
+        (respecting the pins, §2.2) without writing the live store:
+        ``edges.compact`` and ``index.compact_index`` build fresh tensors
+        for the fields they compact and for the emptied logs, and alias
+        every other field of the live store.  Returns a handle carrying the
+        shadow, the per-shard fill marks at build time, and the structural
+        epochs that :meth:`try_handoff` validates."""
+        handle = {"gc_ts": self.gc_ts(), "kinds": tuple(kinds),
+                  "epochs": dict(self.epochs), "shadow": {}, "marks": {}}
+        if "edges" in kinds:
+            handle["shadow"]["edges"] = edges_mod.compact(
+                self.store, self.cfg, handle["gc_ts"])
+            handle["marks"]["dl"] = self.dl_count.copy()
+            handle["marks"]["il"] = self.il_count.copy()
+        if "index" in kinds:
+            handle["shadow"]["index"] = index_mod.compact_index(
+                self.store, self.cfg, handle["gc_ts"])
+            handle["marks"]["xd"] = self.xd_count.copy()
+        # "vindex" builds no shadow: the fold is a cheap prefix compaction
+        # whose positions only host metadata references, so it runs at
+        # handoff and cannot go stale
+        return handle
+
+    def try_handoff(self, handle: dict) -> dict:
+        """Phase 2: merge the shadow into the live store, or refuse.
+
+        Per kind, succeeds only if the structural epochs the shadow depends
+        on are unchanged since the build (edge / vertex deletes tombstone
+        CSR / index positions, which the fold moved; an inline compaction
+        staled the base).  On success the store keeps its live vertex
+        arrays, adopts the shadow's compacted CSR / index, and replays the
+        delta-log tail appended since the build from the live log
+        (``replay_log_tail``), so concurrent create-only ingest loses
+        nothing.  MVCC pin safety: any pin taken after the build is >= the
+        build's ``gc_ts``, so every record the fold dropped was already
+        invisible to it.
+
+        Only the shadow's compacted fields are read here: its other fields
+        alias the live store, which the waves since the build wrote in
+        place.  Returns ``{kind: bool}``; a ``False`` kind needs a
+        rebuild."""
+        out = {}
+        for kind in handle["kinds"]:
+            if kind == "edges":
+                ok = (self.epochs["delete_e"] == handle["epochs"]["delete_e"]
+                      and self.epochs["compact_edges"]
+                      == handle["epochs"]["compact_edges"])
+                if ok:
+                    self._handoff_edges(handle)
+                out[kind] = ok
+            elif kind == "index":
+                ok = (self.epochs["delete_v"] == handle["epochs"]["delete_v"]
+                      and self.epochs["compact_index"]
+                      == handle["epochs"]["compact_index"])
+                if ok:
+                    self._handoff_index(handle)
+                out[kind] = ok
+            elif kind == "vindex":
+                self.run_vindex_compaction()
+                out[kind] = True
+        return out
+
+    def _counts(self, c) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(c).astype(np.int32),
+                               device=self.device)
+
+    def _replay(self, shadow, names, mark, fill, cap) -> dict:
+        """The shadow's emptied logs ``names`` with the live logs' tails
+        ``[mark, fill)`` replayed onto them."""
+        w, n = self._counts(mark), self._counts(fill)
+        return {f: replay_log_tail(getattr(shadow, f), getattr(self.store, f),
+                                   w, n, cap=cap) for f in names}
+
+    def _handoff_edges(self, handle: dict) -> None:
+        sh = handle["shadow"]["edges"]
+        cap = self.cfg.cap_delta
+        repl = {f: getattr(sh, f) for f in (
+            "oe_indptr", "oe_dst", "oe_type", "oe_create", "oe_delete",
+            "ie_indptr", "ie_src", "ie_type", "ie_create", "ie_delete")}
+        repl.update(self._replay(sh, ("dl_slot", "dl_nbr", "dl_type",
+                                      "dl_create", "dl_delete"),
+                                 handle["marks"]["dl"], self.dl_count, cap))
+        repl.update(self._replay(sh, ("il_slot", "il_nbr", "il_type",
+                                      "il_create", "il_delete"),
+                                 handle["marks"]["il"], self.il_count, cap))
+        self.dl_count -= handle["marks"]["dl"]
+        self.il_count -= handle["marks"]["il"]
+        repl["dl_count"] = self._counts(self.dl_count)
+        repl["il_count"] = self._counts(self.il_count)
+        self.store = dataclasses.replace(self.store, **repl)
+        self.epochs["compact_edges"] += 1
+        self.stats["bg_compactions"] += 1
+
+    def _handoff_index(self, handle: dict) -> None:
+        sh = handle["shadow"]["index"]
+        repl = {f: getattr(sh, f) for f in (
+            "ix_vtype", "ix_key", "ix_gid", "ix_create", "ix_delete",
+            "ix_count")}
+        repl.update(self._replay(sh, ("xd_vtype", "xd_key", "xd_gid",
+                                      "xd_create", "xd_delete"),
+                                 handle["marks"]["xd"], self.xd_count,
+                                 self.cfg.cap_idx_delta))
+        self.xd_count -= handle["marks"]["xd"]
+        repl["xd_count"] = self._counts(self.xd_count)
+        self.store = dataclasses.replace(self.store, **repl)
+        self.epochs["compact_index"] += 1
+        self.stats["bg_compactions"] += 1
+
+    def vacuum(self) -> int:
+        """Reclaim vertex slots dead before gc_ts (offline GC of
+        tombstones): each goes on its shard's free list, and every listed
+        slot's header is wiped so it reads as empty."""
+        gc = self.gc_ts()
+        v_delete = self.store.v_delete.cpu().numpy()
+        vtype = self.store.vtype.cpu().numpy()
+        S, cap_v = self.cfg.n_shards, self.cfg.cap_v
+        n = 0
+        for s in range(S):
+            blk = slice(s * cap_v, (s + 1) * cap_v)
+            dead = np.where((v_delete[blk] <= gc) & (vtype[blk] >= 0))[0]
+            for slot in dead:
+                if int(slot) < self.v_next[s]:
+                    self.v_free[s].append(int(slot))
+                    n += 1
+        if n:
+            rows = self._i32([s * cap_v + sl for s in range(S)
+                              for sl in self.v_free[s]]).long()
+            self.store.vtype[rows] = int(NULL)
+            self.store.v_create[rows] = int(TS_INF)
+            self.store.v_delete[rows] = int(TS_INF)
+        return n
 
     # ------------------------------------------------------------------
     # helpers

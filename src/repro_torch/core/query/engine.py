@@ -86,10 +86,14 @@ def execute(db, queries: list[dict], *, caps: Optional[QueryCaps] = None,
     instant: fusion groups past it are skipped and flagged ``deadline_q``.
     ``mesh`` is a ``ShardMesh`` with one shard per store shard.
     """
+    from repro_torch.core import faults as faults_mod
     from repro_torch.core.query import planner
     from repro_torch.dist.mesh import ShardMesh
     if not queries:
         raise ValueError("execute() needs at least one query")
+    # chaos site: a wave-execution crash ("raise") or straggler ("stall"),
+    # before any snapshot is pinned
+    faults_mod.check(db, "engine.wave")
     if budget not in (None, "per-query", "shared"):
         raise ValueError(f"budget must be 'per-query' or 'shared', "
                          f"got {budget!r}")

@@ -169,6 +169,34 @@ def window_shard_major(arrs, S: int, cap: int, W: int):
     return tuple(a.reshape(S, cap)[:, :W].reshape(-1) for a in arrs)
 
 
+def replay_log_tail(dst, src, w, n, *, cap: int):
+    """Copy each shard's log tail ``[w_s, n_s)`` from ``src`` onto a copy
+    of ``dst`` at ``[0, n_s - w_s)``.  Flat shard-major ``(S*cap,)``
+    tensors; ``w`` and ``n`` are ``(S,)`` integer tensors.
+
+    The compaction-handoff primitive (§2.2 concurrent GC): ``dst`` is the
+    shadow store's freshly emptied delta log, ``src`` the live log, ``w``
+    the per-shard fill at shadow-build time and ``n`` the fill now.
+    Positions past the tail keep ``dst``'s empty-log fill (the prefix-fill
+    invariant behind ``planner.delta_window``).  The JAX package scatters
+    every position and drops the ones past the tail at an out-of-bounds
+    row; here they are masked out before the scatter (an out-of-range CUDA
+    index is fatal).  Neither ``dst`` nor ``src`` is written."""
+    S = w.shape[0]
+    dev = dst.device
+    k = torch.arange(cap, dtype=torch.int64, device=dev)[None, :]
+    base = (torch.arange(S, dtype=torch.int64, device=dev) * cap)[:, None]
+    src_pos = w.to(device=dev, dtype=torch.int64)[:, None] + k
+    valid = (src_pos < n.to(device=dev, dtype=torch.int64)[:, None]
+             ).reshape(-1)
+    # a valid read lies in [0, S*cap) whenever n <= cap; the clamp is the
+    # JAX gather's, for counts past a shard's cap
+    rows = torch.clamp(base + src_pos, max=src.shape[0] - 1).reshape(-1)
+    out = dst.clone()
+    out[(base + k).reshape(-1)[valid]] = src[rows[valid]]
+    return out
+
+
 def lexsort(keys, operands):
     """Sort ``operands`` by ``keys`` (first key most significant) with
     stable sorts from the last key to the first, so ties keep their input

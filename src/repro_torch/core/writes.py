@@ -206,7 +206,8 @@ def commit_wave(db, txns: Sequence, caps=None):
     3. inline compaction only as the overflow backstop (``delete_e`` entries
        count too: a tombstone-laden log reclaims space only at compaction);
     4. winners chunked under ``BatchCaps``, each chunk applied at its own
-       commit timestamp and recorded as one wave record.
+       commit timestamp and recorded as one wave record, which the
+       replication log (when attached) ships durably.
 
     After the wave, crossing the delta-log fill watermark schedules the
     background compaction task (never compacts inline here)."""
@@ -270,6 +271,8 @@ def commit_wave(db, txns: Sequence, caps=None):
         db.wave_seq = seq
         db.wave_log.append(rec)
         _remember_rids(db, chunk, ts)
+        if db.replication_log is not None:
+            db.replication_log.append_wave(rec)
     db.stats["commits"] += len(winners)
     db.stats["aborts"] += len(txns) - len(winners)
     db.stats["write_waves"] += 1

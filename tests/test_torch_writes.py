@@ -123,12 +123,7 @@ def test_host_mirrors_match_jax(which, jax_side, request):
     db = {"script": lambda: request.getfixturevalue("port_script")[0],
           "replica": lambda: request.getfixturevalue("port_replica"),
           "kg": lambda: request.getfixturevalue("port_kg")}[which]()
-    want = dict(jax_side["mirrors"][which])
-    # the background compaction's counters come with it (ROADMAP queue 1
-    # item 9); nothing here runs it, so JAX's read 0
-    want["stats"] = dict(want["stats"])
-    assert [want["stats"].pop(k) for k in ("bg_compactions",
-                                           "compaction_rebuilds")] == [0, 0]
+    want = jax_side["mirrors"][which]
     assert json.loads(json.dumps(script.mirrors(db))) == want
 
 
@@ -265,15 +260,21 @@ def test_deprecated_shims_warn():
 
 
 def test_unported_parts_raise():
-    cfg = StoreConfig(**script.CFG)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        GraphDB(cfg, device="cpu", replication_log=object())
-    db = fresh_db()
-    db.write([writes.CreateVertex("person", 1)])      # no task queue: fine
-    db.task_queue = object()
+    """The parts this file's slice left out (a replication log, a task
+    queue over the watermark) are ported now: both are taken, and neither
+    raises."""
+    from repro_torch.core.replication import ObjectStore, ReplicationLog
+    from repro_torch.core.tasks import TaskQueue
+    log = ReplicationLog(ObjectStore())
+    db = fresh_db(replication_log=log)
+    db.write([writes.CreateVertex("person", 1)])
+    assert log.lag() == 0 and len(log.os.tables["g.vertices"]) == 1
+    db.task_queue = TaskQueue(db)
     db.compaction_watermark = 0.0
-    with pytest.raises(NotImplementedError, match="item 9"):
-        db.write([writes.CreateVertex("person", 2)])
+    db.write([writes.CreateVertex("person", 2)])
+    assert [t.name for t in db.task_queue._q] == ["bg-compaction"]
+    db.task_queue.drain()
+    assert db.stats["bg_compactions"] == 2          # edges and index
 
 
 def test_gc_ts_counts_fleet_pins():
