@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's A1 read and write paths, its maintenance and
-durability paths, LM serving and training paths and GNN/recsys zoo on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch port's A1 read and write paths, its maintenance,
+durability and serving paths, LM serving and training paths and GNN/recsys
+zoo on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # the whole run (one GPU)
     python3 chip_smoke.py --quick    # build and check the kernels only
@@ -54,6 +54,25 @@ Phases, each printed on its own line:
      creates into the reclaimed slots, read back; then
      ``FastRestartCache``: hold, drop the database, restart on the card,
      the batch bit for bit, one more wave; a MAINT line;
+ 6d. serving — on 6c's store, ``repro_torch.launch.serve.A1Server`` at the
+     JAX package's serving defaults for a wave of 64 (a1-kg caps,
+     ``budget_ms`` 100, ``queue_frac`` 0.1, ``read_batch`` 64,
+     ``budget="auto"``, ``shared_knee`` 64): (a) 48 admitted waves of phase
+     5's ``mixed`` documents under both key laws (4 tenants, the three
+     query classes), a wave of 6b's write mix through ``submit_write`` and
+     ``pump()`` after each, the background compaction's watermark at 1/64
+     of a log; every dispatch, base and hedge, re-run with
+     ``backend="ref"`` at its snapshot and equal bit for bit (the check's
+     seconds off the server's clock), every read and write id ending in one
+     result, ``admitted == served + aborted_faults``; (b) 16 selects paged
+     to the end during (a), each equal to the select at its token's pinned
+     snapshot, no pin left; (c) ``benchmarks/bench_serve.py``'s overload
+     run: 12 calibration waves, then open-loop arrivals at 1x and 2x their
+     rate for 4 s each, the shed watermark below the wave size; (d) 8
+     chaos waves (a wave crash retried, a crash storm aborted with
+     attribution, a stall, a stale-continuation storm) against a batch
+     pinned before them; a PROFILE of one wave at the knee and a
+     SERVE_TIER line;
   7. nearest — a second store (the JAX package's hybrid vector+graph
      workload at one machine's size: 4 M vector-indexed docs) and batches of
      ``Nearest``-rooted queries in both budget modes, equal to
@@ -100,8 +119,9 @@ Phases, each printed on its own line:
      BST's item table with the train batch's histories as bags), and
      ``segment_spmm`` against the model's ``common.spmm`` on cora;
  10. kernels — each kernel at the inputs the main path gave it: its
-     launches during phases 5-9c and 11b (by path: ``write``, and
-     ``maintenance`` for 6c and 11b together, among them), its time
+     launches during phases 5-9c, 11b and 11 (by path: ``write``,
+     ``maintenance`` for 6c and 11b together, and ``serving`` for 6d and
+     11's mesh serving, among them), its time
      beside the plain version's, the
      bound and a library call, as one JSON line; a kernel under 0.5 ms and
      its library call are timed again as 20 calls in one CUDA graph
@@ -109,8 +129,10 @@ Phases, each printed on its own line:
      call is given (``host_ms``; by part, ``host_parts_ms``, for the two
      ``sorted_lookup`` probes and ``sort_pairs``); ``knn_topk`` is timed
      again at its largest one-row call (``at_r1``, the ``nearest_k8/b1``
-     cell) and ``dedup_compact_rows`` and ``sort_rows`` at their largest
-     calls on the mesh path (``at_mesh``), each with its own bound, and
+     cell), ``dedup_compact_rows`` and ``sort_rows`` at their largest
+     calls on the mesh path (``at_mesh``), and ``dedup_compact_rows`` at
+     its largest wide-route call in 6d (``at_wide``, a hedge's rows past
+     MAX_W), each with its own bound, and
      the radix rows' valid keys and digit passes (``valid_per_row``,
      ``rows_by_passes``); ``segment_spmm`` adds a second bound,
      ``gathered_ms`` (x's row read once an id), and its share of ``ms``;
@@ -120,7 +142,9 @@ Phases, each printed on its own line:
      the CPU (every store field, host mirror, event and wave record equal
      bit for bit); the film KG loaded through the write path onto 4
      shards, edited by a write wave, and queried through a 4-shard mesh
-     against set computations;
+     against set computations, then served by ``A1Server`` through the
+     mesh (``use_spmd=True``) and locally (run before phase 10, so that
+     the mesh serving's launches count as ``serving``);
  11b. durability (run after 9c, before phase 10, so that its launches
      count) — a film KG loaded through the write path into a database
      whose ``ReplicationLog`` ships every wave to an ``ObjectStore`` with
@@ -137,16 +161,19 @@ Phases, each printed on its own line:
 Each of phases 5-9b sets the kernels' launch counts to 0 just before its
 timed batches, calls or steps (per budget mode or cell) and reads them just
 after (the write phase around the whole phase: its launches are its
-read-back queries'; phases 6c and 11b likewise, into one count); phase
-9c does so around its kernel calls.
+read-back queries'; phases 6c and 11b likewise, into one count; phase 6d
+and phase 11's mesh serving into ``serving``); phase 9c does so around
+its kernel calls.
 Any failed check raises, so the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 before
-printing any result.  ``--rehearse`` runs phases 4-9c, 11b and 11 at a
-tiny size on the CPU (plain kernel versions, no build) and then exits 1.
+printing any result.  ``--rehearse`` runs phases 4-9c (6d among them),
+11b and 11 at a tiny size on the CPU (plain kernel versions, no build) and
+then exits 1.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -186,6 +213,17 @@ WRITE_REHEARSE = dict(waves=12, ingest=4, cast=16, update=16, delete=4,
 # create reuses
 MAINT_FULL = dict(maint_waves=60, reuse=16_384)
 MAINT_REHEARSE = dict(maint_waves=40, reuse=4_096)
+# phase 6d, the serving tier: read waves of 64 (src/repro/launch/serve.py's
+# defaults at the a1-kg serving cell's batch), selects paged at the
+# server's default page, bench_serve's 12 calibration waves and open loops
+# (benchmarks/bench_serve.py:74-135; 4 s a rate here), 8 chaos waves; a
+# read wave's writes: WRITE_FULL's ingest / cast / update / delete mix
+# (32:192:128:32) over 32
+SERVE_FULL = dict(waves=48, pages=16, page_size=16, calib_waves=12,
+                  open_s=4.0)
+SERVE_REHEARSE = dict(waves=8, pages=4, page_size=16, calib_waves=3,
+                      open_s=0.5)
+SERVE_TXNS = dict(ingest=1, cast=6, update=4, delete=1)
 # phase 11b: the film KG that loads, replicates and recovers through the
 # write path (host-bound: a vertex probe a create; PERF.md §5)
 DUR_FULL = dict(n_films=5_000, n_actors=4_000, n_directors=250, n_genres=30)
@@ -491,6 +529,12 @@ def phase_kernel_checks():
         raise AssertionError("a row wider than MAX_W was accepted")
     except ValueError:
         pass
+    try:
+        dk.dedup_compact_rows(torch.empty((0, dk.MAX_W_WIDE + 1),
+                                          dtype=torch.int32, device=dev), 8)
+        raise AssertionError("a row wider than MAX_W_WIDE was accepted")
+    except ValueError:
+        pass
     n_cases += _check_dedup(rng, t)
     n_cases += _check_sort_rows(rng, t)
     n_cases += _check_searchsorted_left(rng, t)
@@ -562,11 +606,34 @@ def _smem_edge_rows(rng):
     return np.stack(rows)
 
 
+def _wide_edge_rows(rng):
+    """Rows of the wide route (147,471 columns, a hedge's): valid counts
+    around its key room in shared memory (49,536 keys: 32-bit counts take
+    16 KB more), and 80,000 and all valid keys that the first pass puts in
+    one bucket (multiples of 256), where a warp's start inside the bucket
+    passes 2**16."""
+    import numpy as np
+    from repro_torch.kernels.dedup_compact import kernel as dk
+    W = 147_471
+    cap2 = dk.dedup_key_cap(W)
+    rows = []
+    for n in (cap2 // 2, cap2 // 2 + 1, cap2, cap2 + 1, W):
+        r = rng.integers(0, 14_500_063, W)
+        r[rng.permutation(W)[:W - n]] = I32MAX
+        rows.append(r)
+    for n in (80_000, W):
+        r = rng.integers(0, 56_000, W) * 256
+        r[rng.permutation(W)[:W - n]] = I32MAX
+        rows.append(r)
+    return np.stack(rows)
+
+
 def _check_dedup(rng, t) -> int:
     """dedup_compact_rows against its plain version and the ref backend:
     the radix routine's edge widths, each with every row kind; the
     shared-memory edge rows (the scratch rows in use); R = 130 and R = 0;
-    and caps below and past the width."""
+    caps below and past the width; and the wide route's widths and edge
+    rows."""
     import numpy as np
     from repro_torch.kernels.dedup_compact import kernel as dk
     from repro_torch.kernels.dedup_compact import ref as dref
@@ -577,6 +644,13 @@ def _check_dedup(rng, t) -> int:
                   _smem_edge_rows(rng), 4096))
     cases.append(("R=130", rng.integers(-5, 3000, (130, 300)), 64))
     cases.append(("R=0", np.zeros((0, 300)), 64))
+    # past MAX_W (a hedge at 4x the a1-kg caps): the wide route's 32-bit
+    # digit counts, at its first width, around 2**16 and at the hedge's
+    cases += [(f"W={W} (wide)", _dedup_rows(rng, W), cap)
+              for W in (dk.MAX_W + 1, 65_535, 65_536, 65_537, 147_471)
+              for cap in (4096, 16_384)]
+    cases.append(("wide, valid counts at the shared-memory edges",
+                  _wide_edge_rows(rng), 4096))
     for what, x, cap in cases:
         xt = t(x)
         got = dk.dedup_compact_rows(xt, cap)
@@ -1450,30 +1524,40 @@ class Recorder:
 
     # further calls timed beside the largest: knn_topk's largest one-row
     # call (nearest_k8/b1), dedup_compact_rows' and sort_rows' largest on
-    # the mesh path
-    EXTRA = {"knn_topk": ("r1", lambda a: a[0].shape[0] == 1),
-             "dedup_compact_rows": ("mesh", lambda a: TIMED_PATH[0] ==
-                                    "mesh"),
-             "sort_rows": ("mesh", lambda a: TIMED_PATH[0] == "mesh")}
+    # the mesh path, and dedup_compact_rows' largest wide-route call in the
+    # serving phase (a hedge's rows)
+    EXTRA = {"knn_topk": [("r1", lambda a: a[0].shape[0] == 1)],
+             "dedup_compact_rows": [
+                 ("mesh", lambda a: TIMED_PATH[0] == "mesh"),
+                 ("wide", lambda a: TIMED_PATH[0] == "serving"
+                  and a[0].shape[1] > _dk().MAX_W)],
+             "sort_rows": [("mesh", lambda a: TIMED_PATH[0] == "mesh")]}
 
     def _wrap(self, name, fn):
         def rec(*args, **kw):
             size = None
             if self.only is None or name in self.only:
                 size = self.WORK[name](args, kw)
-                if size >= self.best.get(name, (-1,))[0]:
+                if size is not None and \
+                        size >= self.best.get(name, (-1,))[0]:
                     self.best[name] = (size, args, kw)
-            label, want = self.EXTRA.get(name, (None, None))
-            if label and want(args):
-                size = self.WORK[name](args, kw) if size is None else size
-                if size >= self.extra.get((name, label), (-1,))[0]:
-                    self.extra[(name, label)] = (size, args, kw)
+            for label, want in self.EXTRA.get(name, ()):
+                if want(args):
+                    size = self.WORK[name](args, kw) if size is None \
+                        else size
+                    if size >= self.extra.get((name, label), (-1,))[0]:
+                        self.extra[(name, label)] = (size, args, kw)
             return fn(*args, **kw)
         return rec
 
     def restore(self):
         for name, mod in self.mods.items():
             setattr(mod, name, self.orig[name])
+
+
+def _dk():
+    from repro_torch.kernels.dedup_compact import kernel
+    return kernel
 
 
 def _tensors(args):
@@ -2122,50 +2206,62 @@ def _write_readback(load, batch, rec0, ts0, caps, dev):
     return len(films) + len(acts) + len(upd) + len(dead), n_edges
 
 
-class _PackTimer:
-    """Times the planner's pack of a wave's delta matches
-    (``planner._fit_delta``) on the calls that pack: on the card, CUDA
-    events around each call (its host read of the width included); on the
-    CPU, the host clock."""
+def _pack_left(dn):
+    """The delta pack the planner ran before the dedup kernel took wide
+    rows (``planner._fit_delta``, since removed): each row's delta matches
+    (NULL where none) packed left and cut to the most any row holds (one
+    host read of that count)."""
+    import torch
+    from repro_torch.core.query import planner
+    R = dn.shape[0]
+    if R == 0 or dn.shape[1] == 0:
+        return dn
+    hit = dn >= 0
+    pos = torch.cumsum(hit, dim=1, dtype=torch.int32) - 1
+    W = max(int(pos[:, -1].max()) + 1, 1)
+    out = torch.full((R, W + 1), planner._NULL, dtype=dn.dtype,
+                     device=dn.device)
+    out.scatter_(1, torch.where(hit, pos, W).long(), dn)
+    return out[:, :W]
 
-    def __init__(self, planner_mod, dev):
-        self.mod, self.fit, self.dev = planner_mod, planner_mod._fit_delta, dev
-        self.calls = []          # (columns in, columns out, start, end)
-        planner_mod._fit_delta = self._fit
 
-    def _stamp(self):
-        import torch
-        if self.dev.type != "cuda":
-            return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
+def _pack_ab(db, batch, caps, dev, n=6):
+    """Whether a delta pack still pays now that the dedup kernel takes
+    wide rows: the read-back batch on the written store, on the kernel
+    backend, as the planner runs it (``plain``: rows of F + 2 (E + delta
+    window) columns, past MAX_W, the kernel's wide route) and with every
+    wave's delta matches packed first (``packed``: :func:`_pack_left`),
+    in the order plain, packed, packed, plain, ...; equal results;
+    host-clock ms to ``synchronize()`` and the widest dedup row of each
+    arm.  Run after the write path's launches were read."""
+    import numpy as np
+    from repro_torch.core import backend as backend_mod
+    from repro_torch.core.query import planner
+    rows0, dedup0 = planner._delta_rows, backend_mod.dedup_compact_rows
+    ms = {"plain": [], "packed": []}
+    res, widest = {}, {"plain": 0, "packed": 0}
+    mode = [None]
 
-    def _fit(self, dn, row_w, backend):
-        t0 = self._stamp()
-        out = self.fit(dn, row_w, backend)
-        if out is not dn:
-            self.calls.append((dn.shape[1], out.shape[1], t0, self._stamp()))
-        return out
-
-    def restore(self):
-        self.mod._fit_delta = self.fit
-
-    def summary(self) -> dict:
-        import numpy as np
-        _sync(self.dev)
-        if self.dev.type == "cuda":
-            ms = [a.elapsed_time(b) for _, _, a, b in self.calls]
-        else:
-            ms = [(b - a) * 1e3 for _, _, a, b in self.calls]
-        out = [c[1] for c in self.calls]
-        return dict(calls=len(ms), ms_total=float(np.sum(ms)),
-                    ms_p50=float(np.median(ms)) if ms else None,
-                    ms_max=float(np.max(ms)) if ms else None,
-                    columns_in_max=max((c[0] for c in self.calls),
-                                       default=None),
-                    columns_out_p50=float(np.median(out)) if out else None,
-                    columns_out_max=max(out, default=None))
+    def dedup(x, cap, *, backend):
+        widest[mode[0]] = max(widest[mode[0]], x.shape[1])
+        return dedup0(x, cap, backend=backend)
+    backend_mod.dedup_compact_rows = dedup
+    try:
+        for i in range(2 * n):
+            mode[0] = ("plain", "packed")[(i + i // 2) % 2]
+            planner._delta_rows = rows0 if mode[0] == "plain" else (
+                lambda *a: _pack_left(rows0(*a)))
+            _sync(dev)
+            t0 = time.perf_counter()
+            r = db.query(batch, caps=caps, fused=True, backend="kernel")
+            _sync(dev)
+            ms[mode[0]].append((time.perf_counter() - t0) * 1e3)
+            res.setdefault(mode[0], r)
+    finally:
+        planner._delta_rows, backend_mod.dedup_compact_rows = rows0, dedup0
+    _same(res["plain"], res["packed"], "read-back batch, plain and packed")
+    return {m: dict(ms_p50=float(np.median(v)), ms=v,
+                    widest_dedup_row=widest[m]) for m, v in ms.items()}
 
 
 def phase_write(kg, dev, sz, launches, rec=None, caps_kw=A1_CAPS):
@@ -2177,7 +2273,6 @@ def phase_write(kg, dev, sz, launches, rec=None, caps_kw=A1_CAPS):
     read-back batch, its caps and the commit times."""
     import numpy as np
     import torch
-    from repro_torch.core.query import planner as planner_mod
     from repro_torch.core.query.executor import QueryCaps
     from repro_torch.core.writes import CapacityError, DeleteVertex
     from repro_torch.kernels import _cuda
@@ -2185,7 +2280,6 @@ def phase_write(kg, dev, sz, launches, rec=None, caps_kw=A1_CAPS):
     caps = QueryCaps(**caps_kw)
     rng = np.random.default_rng(11)
     load = _WriteLoad(kg, rng, sz)
-    packs = _PackTimer(planner_mod, dev)
     only = rec.only if rec is not None else None
     if rec is not None:
         rec.only = set()        # the kernel report keeps the serve inputs
@@ -2282,8 +2376,8 @@ def phase_write(kg, dev, sz, launches, rec=None, caps_kw=A1_CAPS):
     for kind in ("run_compaction", "run_index_compaction",
                  "run_vindex_compaction"):
         delattr(db, kind)
-    packs.restore()
     launches["write"] = dict(_cuda.LAUNCHES)
+    pack_ab = _pack_ab(db, batch, caps, dev)
     if rec is not None:
         rec.only = only
     secs = float(np.sum(stage_s[:len(commit_s)]) + np.sum(commit_s))
@@ -2301,7 +2395,7 @@ def phase_write(kg, dev, sz, launches, rec=None, caps_kw=A1_CAPS):
         commit_ms_p50=float(np.median(cm_ms)),
         commit_ms_p99=float(np.percentile(cm_ms, 99)),
         stage_s_by_kind=load.stage_s, readback_s=readback_s,
-        delta_pack=packs.summary(),
+        delta_pack_ab=pack_ab,
         inline_compactions=comp, readbacks=-(-W // sz["readback_every"]),
         checked_vertices=checked[0], checked_edges=checked[1],
         hub_out_degree=hub_deg, clock=db.clock,
@@ -2580,6 +2674,555 @@ def phase_maintenance(kg, dev, sz, state, launches, load_s, rec=None):
         checked_edges=checked[1], vacuum_slots=n_vac, vacuum_s=vac_s,
         reused_slots=len(reused), hold_s=hold_s, restart_s=restart_s,
         load_s=load_s, store_bytes=store_bytes,
+        phase_seconds=time.perf_counter() - t_phase,
+        reduced="n_shards 256 -> 1")
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: the serving tier (A1Server) on 6c's store
+# ---------------------------------------------------------------------------
+
+class _CheckClock:
+    """The ``time`` of the serve and planner modules during phase 6d: the
+    real clocks less the seconds spent in the ``backend="ref"`` checks, so
+    that a check moves no deadline, budget spend, EWMA or latency."""
+
+    def __init__(self):
+        self.paused = 0.0
+
+    def monotonic(self):
+        return time.monotonic() - self.paused
+
+    def perf_counter(self):
+        return time.perf_counter() - self.paused
+
+
+def _same_unskipped(a, b, what) -> int:
+    """``_same``, except for the slots a deadline skipped in ``a`` (the
+    reference ran them): those must be flagged and unfailed.  Returns the
+    number of skipped slots."""
+    import numpy as np
+    if a.deadline_q is None or not a.deadline_q.any():
+        _same(a, b, what)
+        return 0
+    from repro_torch.core.addressing import NULL
+    keep = ~a.deadline_q
+    check(not a.failed_q[a.deadline_q].any(), f"{what}: a skipped slot failed")
+    for f in ("counts", "failed_q", "rows_gid", "truncated", "shared_ovf_q"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None and y is not None:
+            # every slot of this terminal was skipped: the kept ones are
+            # of the other terminal, empty in the reference too
+            check(bool((y[keep] == (False if f == "truncated"
+                                    else NULL)).all()), f"{what}: {f}")
+            continue
+        check((x is None) == (y is None) and (
+            x is None or np.array_equal(x[keep], y[keep])),
+            f"{what}: {f} differs")
+    for k in (a.rows or {}):
+        check(np.array_equal(a.rows[k][keep].view(np.int32),
+                             b.rows[k][keep].view(np.int32)),
+              f"{what}: rows {k}")
+    return int(a.deadline_q.sum())
+
+
+class _RefCheck:
+    """Wraps a server's ``_run``: every dispatch, base and hedge alike, is
+    re-run at once with ``backend="ref"`` at the same ``read_ts``, caps,
+    budget and ``fused`` (fused whenever a deadline made the dispatch
+    fused), with the database's fault injector off, and must agree bit for
+    bit.  The check's seconds go to ``clock.paused``."""
+
+    def __init__(self, srv, clock):
+        self.srv, self.clock, self.real = srv, clock, srv._run
+        self.checked = self.skipped = 0
+        srv._run = self
+
+    def __call__(self, queries, caps, read_ts, fused=None, budget="auto",
+                 deadline=None):
+        srv = self.srv
+        res = self.real(queries, caps, read_ts, fused=fused, budget=budget,
+                        deadline=deadline)
+        db = srv.db
+        t0 = time.monotonic()
+        inj, db.faults = db.faults, None
+        try:
+            ref = db.query(
+                queries, caps=caps, read_ts=read_ts, backend="ref",
+                mesh=srv.mesh if srv.use_spmd else None,
+                fused=True if deadline is not None else fused,
+                budget=srv._budget_for(len(queries)) if budget == "auto"
+                else budget)
+        finally:
+            db.faults = inj
+        self.skipped += _same_unskipped(res, ref,
+                                        f"serving dispatch {self.checked}")
+        self.checked += 1
+        self.clock.paused += time.monotonic() - t0
+        return res
+
+
+class _ServeWrites:
+    """Phase 6d's writes through ``A1Server.submit_write``: 6b's mix
+    (``_WriteLoad``'s keys, pools, Zipf actors and delete targets) in
+    WRITE_FULL's proportions, ``SERVE_TXNS`` transactions a read wave.  An
+    ingest is two transactions, as a client without the gids must send
+    it: the films and actors, then (once that committed) their director,
+    genre and cast edges.  Every write id is kept, with its outcome."""
+
+    def __init__(self, load, srv):
+        self.load, self.srv = load, srv
+        self.wids = []             # every submitted id
+        self.open = {}             # wid -> (kind, meta), outcome unread
+        self.links = []            # committed ingests waiting for edges
+        self.results = {}          # wid -> write_result
+        self.deleted, self.busy = set(), set()
+        self.by_kind = {}
+
+    def _submit(self, kind, ops, meta=None):
+        wid = self.srv.submit_write(ops)
+        self.wids.append(wid)
+        self.open[wid] = (kind, meta)
+        self.by_kind[kind] = self.by_kind.get(kind, 0) + 1
+        return wid
+
+    def wave(self):
+        from repro_torch.core.writes import (CreateEdge, CreateVertex,
+                                             DeleteVertex, UpdateVertex)
+        load, rng = self.load, self.load.rng
+        plan = load.plan()
+        for films in self.links:
+            ops = []
+            for f in films:
+                ops += ([CreateEdge(f["director"], f["film"], "film.director",
+                                    check=False),
+                         CreateEdge(f["film"], f["genre"], "film.genre",
+                                    check=False)]
+                        + [CreateEdge(f["film"], a, "film.actor", check=False)
+                           for a in f["actors"]])
+            self._submit("link", ops, films)
+        self.links = []
+        kinds = [k for k, n in SERVE_TXNS.items() for _ in range(n)]
+        rng.shuffle(kinds)
+        for kind in kinds:
+            if kind == "ingest":
+                films, ops = [], []
+                genre = plan["genres"].pop()
+                for _ in range(2):
+                    fat = {"gross": float(rng.uniform(1, 500)),
+                           "year": int(rng.integers(1960, 2026)),
+                           "genre": genre - load.g0}
+                    films.append(dict(director=plan["dirs"].pop(),
+                                      genre=genre))
+                    ops += ([CreateVertex("film", load._new_key("film"), fat)]
+                            + [CreateVertex("actor", load._new_key("actor"),
+                                            {"dob": int(rng.integers(
+                                                1940, 2000))})
+                               for _ in range(3)])
+                self._submit("ingest", ops, films)
+            elif kind == "cast":
+                if not load.live:
+                    continue
+                film = load.live[int(rng.integers(len(load.live)))]
+                actor = load._zipf_actor()
+                if film in self.busy or actor in load.films[film]["actors"]:
+                    continue
+                self._submit("cast", [CreateEdge(film, actor, "film.actor")],
+                             (film, actor))
+            elif kind == "update":
+                load.dob_next += 1
+                self._submit("update", [UpdateVertex(
+                    load._zipf_actor(), "actor", {"dob": load.dob_next})])
+            else:
+                for _ in range(8):
+                    film = load._target()
+                    if film not in self.busy and film not in self.deleted:
+                        break
+                else:
+                    continue
+                self.busy.add(film)
+                self._submit("delete", [DeleteVertex(film)], film)
+
+    def settle(self):
+        """Read every outcome the closed write waves stored."""
+        for wid in list(self.open):
+            r = self.srv.write_result(wid)
+            if r is None:
+                continue
+            kind, meta = self.open.pop(wid)
+            self.results[wid] = r
+            ok = r["status"] == "COMMITTED"
+            if kind == "delete":
+                self.busy.discard(meta)
+                if ok:
+                    self.deleted.add(meta)
+                    if meta in self.load.films:
+                        self.load.live.remove(meta)
+            elif ok and kind == "ingest":
+                for j, f in enumerate(meta):
+                    f.update(film=r["gids"][4 * j],
+                             actors=r["gids"][4 * j + 1:4 * j + 4])
+                self.links.append(meta)
+            elif ok and kind == "link":
+                for f in meta:
+                    self.load.films[f["film"]] = dict(
+                        f, actors=set(f["actors"]))
+                    self.load.live.append(f["film"])
+            elif ok and kind == "cast":
+                self.load.films[meta[0]]["actors"].add(meta[1])
+
+
+def _page_directors(kg, rng, n, page):
+    """``n`` directors with 65-256 films at load (a select truncated at
+    the a1-kg ``results`` cap of 64: every token refills), or, on a small
+    graph, the ``n`` with the fewest films over a page."""
+    import numpy as np
+    e = kg.edges
+    m = e["etype"] == kg.db.et("film.director").type_id
+    cnt = np.bincount(e["src"][m], minlength=kg.n_directors)
+    pick = np.flatnonzero((cnt >= 65) & (cnt <= 256))
+    if len(pick) >= n:
+        return [1_000 + int(d) for d in rng.choice(pick, n, replace=False)]
+    over = np.flatnonzero(cnt > page)
+    check(len(over) >= n, "phase 6d: too few directors to page")
+    return [1_000 + int(d) for d in over[np.argsort(cnt[over],
+                                                    kind="stable")][:n]]
+
+
+def _serving_row_checks(srv, qids, rows):
+    """The accounting invariants of tests/test_chaos_serve.py: every
+    admitted id ends in exactly one result, and the counts partition."""
+    import collections
+    check(all(r is not None for r in rows), "serving: an id has no result")
+    check(all(srv.query_result(q) is None for q in qids),
+          "serving: a result was stored twice")
+    by = collections.Counter(r["status"] for r in rows)
+    st = srv.stats
+    check(by.get("OK", 0) == st["served"]
+          and by.get("ABORTED", 0) == st["aborted_faults"]
+          and by.get("SHED", 0) == st["sheds"]
+          and st["admitted"] == st["served"] + st["aborted_faults"],
+          f"serving: results {dict(by)} against stats {st}")
+    return by
+
+
+def _class_latency(srv) -> dict:
+    import numpy as np
+    return {k: {"p50_ms": float(np.percentile(np.asarray(v) * 1e3, 50)),
+                "p99_ms": float(np.percentile(np.asarray(v) * 1e3, 99)),
+                "n": len(v)} for k, v in srv.latencies.items()}
+
+
+def _open_loop(srv, docs, rate, seconds):
+    """bench_serve's open-loop arrivals at ``rate`` a second for
+    ``seconds``: before each ``pump()`` every arrival that is due is
+    submitted (a wave's wall does not thin the arrivals); submissions stop
+    at twice ``seconds`` if the host falls behind, and what is left unsent
+    is counted; then the queue is flushed.  ``offered_qps`` is the rate
+    the server saw: submissions over the time from the first to the
+    last."""
+    import numpy as np
+    n_req = max(1, int(rate * seconds))
+    sub, qids = {}, []
+    t0 = time.perf_counter()
+    i, t_last = 0, t0
+    while i < n_req and time.perf_counter() - t0 < 2 * seconds:
+        while i < n_req and time.perf_counter() >= t0 + i / rate:
+            q, cls = docs[i % len(docs)]
+            s0 = time.perf_counter()
+            qid = srv.submit_query(q, tenant=f"t{i % 4}", qclass=cls)
+            t_last = time.perf_counter()
+            sub[qid] = t_last - s0
+            qids.append(qid)
+            i += 1
+        srv.pump()
+    srv.flush_queries()
+    wall = time.perf_counter() - t0
+    rows = [srv.query_result(q) for q in qids]
+    _serving_row_checks(srv, qids, rows)
+    ok = sum(r["status"] == "OK" and not r.get("budget_exhausted")
+             for r in rows)
+    shed = [q for q, r in zip(qids, rows) if r["status"] == "SHED"]
+    lat = np.concatenate([np.asarray(v) for k, v in srv.latencies.items()
+                          if k != "wave"]) * 1e3
+    return {"rate_qps": rate, "submitted": len(qids),
+            "unsent": n_req - len(qids),
+            "offered_qps": len(qids) / max(t_last - t0, 1e-9),
+            "submit_s": t_last - t0, "wall_s": wall,
+            "goodput_qps": ok / wall, "ok": ok, "shed": len(shed),
+            "shed_share": len(shed) / len(qids),
+            "shed_p50_ms": (float(np.median([sub[q] for q in shed])) * 1e3
+                            if shed else None),
+            "budget_exhausted": srv.stats["budget_exhausted"],
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "read_waves": srv.stats["read_waves"]}
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Kernel launches made inside are left out of the path's counts (the
+    counts are put back as they were on entry)."""
+    from repro_torch.kernels import _cuda
+    saved = dict(_cuda.LAUNCHES)
+    try:
+        yield
+    finally:
+        _cuda.LAUNCHES.update(saved)
+
+
+def phase_serving(kg, dev, sz, state, launches, rec=None):
+    """Phase 6d on 6c's store: ``repro_torch.launch.serve.A1Server`` at
+    the JAX package's serving defaults for the a1-kg serving cell's batch
+    (``A1_CAPS``, ``budget_ms`` 100, ``queue_frac`` 0.1, ``read_batch`` 64,
+    ``budget="auto"``, ``shared_knee`` 64).  (a) mixed serving: phase 5's
+    ``mixed`` documents under both key laws, 4 tenants, the three query
+    classes, one wave of 6b's write mix through ``submit_write`` a read
+    wave and ``pump()`` after each, every dispatch held to
+    ``backend="ref"`` (:class:`_RefCheck`); (b) during (a), selects paged
+    to the end against the select at each token's pinned snapshot; (c)
+    overload: a closed calibration loop, then open-loop arrivals at 1x and
+    2x its rate with the shed watermark below the wave size
+    (``benchmarks/bench_serve.py:74-135``), nothing checked inside; (d)
+    chaos over 8 waves against a batch pinned before them.  Launches
+    count as the ``serving`` path, the server's own only: the pinned
+    batch's reads and the end-of-loop ``tasks.drain()`` are left out
+    (:func:`_uncounted`).  ``rec`` records no main-path input here, as in
+    6b and 6c (the kernel report stays at the read path's inputs), but
+    keeps the largest wide-route dedup call (a hedge's rows) as
+    ``dedup_compact_rows``' ``at_wide``; then a PROFILE of one wave at the
+    knee and one SERVE_TIER line."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import faults as faults_mod
+    from repro_torch.core.query import planner
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import serve
+    db, load, caps = kg.db, state["load"], state["caps"]
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(11)
+    cfg = dict(caps=caps, budget_ms=100.0, queue_frac=0.1, read_batch=64,
+               budget="auto", shared_knee=64, page_size=sz["page_size"])
+    classes = ["serve_q1"] * 22 + ["serve_q2"] * 21 + ["serve_q3"] * 21
+    mixed = [qs for cell, qs in _batches(kg, rng, -(-sz["waves"] // 2), 64)
+             if cell.startswith("mixed")][:sz["waves"]]
+    clock = _CheckClock()
+    saved = (serve.time, planner.time, db.compaction_watermark)
+    serve.time = planner.time = clock
+    # the background compaction's trigger: 1/64 of a delta log (the 0.5
+    # default would not fire in 48 waves), so that the serving loop pumps
+    # builds and handoffs between mixed waves that delete
+    db.compaction_watermark = 1 / 64
+    stats0 = dict(db.stats)
+    timer = _MaintTimer(db, dev)
+    only = rec.only if rec is not None else None
+    if rec is not None:
+        rec.only = set()
+    _cuda.reset_launches()
+    TIMED_PATH[0] = "serving"
+    try:
+        # (a) + (b): mixed serving with writes, paging
+        srv = serve.A1Server(db, **cfg)
+        chk = _RefCheck(srv, clock)
+        wr = _ServeWrites(load, srv)
+        dirs = _page_directors(kg, rng, sz["pages"], sz["page_size"])
+        tokens = {}          # director -> [token, read_ts, pages]
+        qids = []
+        for w, qs in enumerate(mixed):
+            timer.wave = w
+            wr.wave()
+            qids += [srv.submit_query(q, tenant=f"t{j % 4}",
+                                      qclass=classes[j])
+                     for j, q in enumerate(qs)]
+            if w < len(dirs):
+                page, tok = srv.select_paged(q_select(dirs[w]))
+                check(tok is not None, f"select of director {dirs[w]}: "
+                      "no continuation token")
+                ts = srv._continuations[tok].read_ts
+                db.active_query_ts.append(ts)       # held for the check
+                tokens[dirs[w]] = [tok, ts, [page]]
+            for t in tokens.values():
+                if t[0] is not None:
+                    page, t[0] = srv.next_page(t[0])
+                    t[2].append(page)
+            srv.pump()
+            wr.settle()
+        while any(t[0] is not None for t in tokens.values()):
+            for t in tokens.values():           # clients page side by side
+                if t[0] is not None:
+                    page, t[0] = srv.next_page(t[0])
+                    t[2].append(page)
+        srv.flush_queries()
+        srv.flush_writes()
+        with _uncounted():
+            srv.tasks.drain()
+        wr.settle()
+        timer.wave = len(mixed)
+        rows = [srv.query_result(q) for q in qids]
+        by = _serving_row_checks(srv, qids, rows)
+        check(not wr.open and len(wr.results) == len(wr.wids),
+              "serving: a write id has no result")
+        check(srv.stats["read_waves"] >= len(mixed), "serving: waves")
+        paged_rows = 0
+        for d, (_, ts, pages) in tokens.items():
+            got = np.concatenate(pages)
+            res = db.query([q_select(d)], caps=dataclasses.replace(
+                caps, results=1 << (len(got) + 1).bit_length()),
+                read_ts=ts, backend="ref")
+            want = res.rows_gid[0][res.rows_gid[0] >= 0]
+            check(not res.truncated[0] and np.array_equal(got, want),
+                  f"paging director {d}: {len(got)} rows paged, the select "
+                  f"at its snapshot {ts} has {len(want)}")
+            db.active_query_ts.remove(ts)
+            paged_rows += len(got)
+        check(not db.active_query_ts, "serving: pins left "
+              f"{db.active_query_ts}")
+        failed = sum(bool(r.get("failed")) for r in rows
+                     if r["status"] == "OK")
+        wave_s = np.asarray(srv.latencies["wave"])
+        mix = dict(
+            waves=len(mixed), reads=len(qids), checked_dispatches=chk.checked,
+            deadline_skipped_slots=chk.skipped, statuses=dict(by),
+            counters={k: srv.stats[k] for k in (
+                "admitted", "served", "sheds", "tenant_sheds",
+                "read_rejects", "aborted_faults", "budget_exhausted",
+                "deadline_truncated_queries", "hedged", "breaker_skips",
+                "breaker_opens", "budget_denied_hedges", "fastfails",
+                "shared_ovf_queries", "read_waves", "continuations",
+                "continuation_joins", "continuation_flushes",
+                "cursor_refills", "planner_cache_hit_rate",
+                "peak_frontier_bytes_per_query",
+                "peak_frontier_bytes_shared")},
+            fast_fail_share=failed / max(1, by.get("OK", 0)),
+            latency=_class_latency(srv),
+            budget_spend_ms=srv.stats["budget_spend_ms"],
+            writes=dict(submitted=len(wr.wids), by_kind=wr.by_kind,
+                        waves=srv.stats["write_waves"],
+                        txns=srv.stats["write_txns"],
+                        aborts=srv.stats["write_aborts"],
+                        rejects=srv.stats["write_rejects"]),
+            compaction=dict(
+                watermark=db.compaction_watermark,
+                bg_compactions=db.stats["bg_compactions"]
+                - stats0["bg_compactions"],
+                rebuilds=db.stats["compaction_rebuilds"]
+                - stats0["compaction_rebuilds"],
+                builds=timer.builds, handoffs=timer.handoffs,
+                inline_backstops=timer.inline),
+            paging=dict(tokens=len(tokens), rows=paged_rows,
+                        pages=sum(len(t[2]) for t in tokens.values())))
+        p50_wave = float(np.median(wave_s))
+
+        # (c) overload: calibration, then 1x and 2x open loops
+        docs = [(q, classes[j]) for qs in mixed for j, q in enumerate(qs)]
+        cal = serve.A1Server(db, **cfg)
+        t0 = time.perf_counter()
+        for w in range(sz["calib_waves"]):
+            for j, q in enumerate(mixed[w % len(mixed)]):
+                cal.submit_query(q, tenant=f"t{j % 4}", qclass=classes[j])
+            cal.flush_queries()
+        rate = sz["calib_waves"] * 64 / (time.perf_counter() - t0)
+        over = {"calibrated_qps": rate}
+        for mult in (1, 2):
+            o = serve.A1Server(db, **dict(cfg, shed_watermark=63))
+            over[f"{mult}x"] = _open_loop(o, docs, mult * rate,
+                                          sz["open_s"])
+
+        # (d) chaos over 8 waves, a batch pinned before them
+        batch = state["batch"]
+        ts0 = db.clock
+        db.active_query_ts.append(ts0)
+        with _uncounted():
+            base = db.query(batch, caps=caps, read_ts=ts0, fused=True,
+                            backend="kernel")
+        ch = serve.A1Server(db, **cfg)
+        cchk = _RefCheck(ch, clock)
+        cwr = _ServeWrites(load, ch)
+        FI = faults_mod.FaultInjector
+        plan = [FI(seed=21).inject("engine.wave", action="raise", times=(0,)),
+                None,
+                FI(seed=22).inject("engine.wave", action="raise", prob=1.0,
+                                   max_fires=2),
+                None,
+                FI(seed=23).inject("serve.wave.stall", action="stall",
+                                   stall_s=0.005, times=(0,)),
+                None,
+                FI(seed=24).inject("serve.continuation.stale",
+                                   action="race", times=(1,)),
+                None]
+        fired, cq, restarts, tok = [], [], 0, None
+        for w, inj in enumerate(plan):
+            if inj is not None:
+                db.faults = inj
+            if w == 6:      # a token (its sweep is visit 0) the storm expires
+                page, tok = ch.select_paged(q_select(dirs[-1]))
+            cwr.wave()
+            cq += [ch.submit_query(q, tenant=f"t{j % 4}", qclass=classes[j])
+                   for j, q in enumerate(mixed[w % len(mixed)])]
+            ch.pump()
+            cwr.settle()
+            if tok is not None:
+                try:
+                    page, tok = ch.next_page(tok)
+                except KeyError:                  # the stale storm
+                    restarts += 1
+                    page, tok = ch.select_paged(q_select(dirs[-1]))
+            if db.faults is not None:
+                fired += [list(f) for f in db.faults.fired]
+                db.faults = None
+        while tok is not None:
+            page, tok = ch.next_page(tok)
+        ch.flush_queries()
+        ch.flush_writes()
+        with _uncounted():
+            ch.tasks.drain()
+        cwr.settle()
+        crows = [ch.query_result(q) for q in cq]
+        cby = _serving_row_checks(ch, cq, crows)
+        aborted = [r for r in crows if r["status"] == "ABORTED"]
+        check(ch.stats["wave_faults"] == 3 and len(aborted) == 64
+              and all(r["reason"] == "fault:engine.wave" for r in aborted),
+              f"chaos: wave_faults {ch.stats['wave_faults']}, "
+              f"{len(aborted)} aborted")
+        check(restarts == 1 and [f[0] for f in fired] == [
+            "engine.wave", "engine.wave", "engine.wave",
+            "serve.wave.stall", "serve.continuation.stale"],
+            f"chaos: fired {fired}, {restarts} restarts")
+        check(not cwr.open and len(cwr.results) == len(cwr.wids),
+              "chaos: a write id has no result")
+        with _uncounted():
+            after = db.query(batch, caps=caps, read_ts=ts0, fused=True,
+                             backend="kernel")
+        _same(after, base, "chaos: the pinned batch after the storm")
+        db.active_query_ts.remove(ts0)
+        check(not db.active_query_ts, f"chaos: pins left "
+              f"{db.active_query_ts}")
+        chaos = dict(waves=len(plan), fired=fired, statuses=dict(cby),
+                     wave_faults=ch.stats["wave_faults"],
+                     aborted_faults=ch.stats["aborted_faults"],
+                     restarts=restarts, checked_dispatches=cchk.checked,
+                     writes=len(cwr.wids), pinned_batch_equal=True)
+        launches["serving"] = dict(_cuda.LAUNCHES)
+        check(chk.checked + cchk.checked > 0, "serving: nothing checked")
+
+        # one read wave at the knee, profiled (no check inside)
+        if dev.type == "cuda":
+            srv._run = chk.real
+            qs = mixed[0]
+            for j, q in enumerate(qs[:-1]):
+                srv.submit_query(q, tenant=f"t{j % 4}", qclass=classes[j])
+            _profile("serving/wave_64", lambda: srv.submit_query(
+                qs[-1], tenant="t3", qclass=classes[-1]), p50_wave)
+            srv.flush_queries()
+    finally:
+        TIMED_PATH[0] = None
+        serve.time, planner.time, db.compaction_watermark = saved
+        db.task_queue = db.faults = None
+        timer.restore()
+        if rec is not None:
+            rec.only = only
+    say("SERVE_TIER", cell="serving/mixed", mixed=mix, overload=over,
+        chaos=chaos, check_seconds=clock.paused,
         phase_seconds=time.perf_counter() - t_phase,
         reduced="n_shards 256 -> 1")
 
@@ -3795,8 +4438,9 @@ def phase_zoo(dev, sizes, launches, rec):
     say("ZOO_PHASE", seconds=time.perf_counter() - t_phase)
 
 
-def phase_small_reference(dev):
-    """A small store: the port's counts against plain set computations."""
+def phase_small_reference(dev, launches):
+    """A small store: the port's counts against plain set computations;
+    the serving tier's mesh launches join ``launches["serving"]``."""
     import numpy as np
     from repro_torch.core.query.executor import QueryCaps
     from repro_torch.data.kg import build_film_kg
@@ -3844,7 +4488,7 @@ def phase_small_reference(dev):
     check(not sh.failed_q.any() and sh.counts.tolist() == want,
           f"small store, budget=shared: counts {sh.counts.tolist()}")
     n_near = _small_nearest_reference(dev)
-    n_write = _small_write_reference(dev)
+    n_write = _small_write_reference(dev, launches)
     say("SMALL_REFERENCE", queries=2 * len(want) + n_near + n_write,
         equal=True)
 
@@ -3867,7 +4511,7 @@ def _same_db(a, b, what):
           f"{what}: wave records")
 
 
-def _small_write_reference(dev) -> int:
+def _small_write_reference(dev, launches) -> int:
     """The CPU tests' seeded op script (``tests/torch_write_script.py``)
     on this device and on the CPU: every store field, host mirror, event
     and wave record equal bit for bit.  Then the film KG of the CPU tests
@@ -3875,7 +4519,11 @@ def _small_write_reference(dev) -> int:
     one wave of edits (films deleted with their edges, edges created and
     deleted, a film created), and q1 / q2 / q3 through a 4-shard mesh and
     locally, in both budget modes, against set computations over the edge
-    list the writes leave.  Returns the number of queries checked."""
+    list the writes leave; then the same queries served by ``A1Server``
+    in waves of 8 through the mesh (``use_spmd=True``) and locally, at a
+    fixed wave deadline so that no budget truncates a wave, against the
+    same counts (the mesh run's launches join ``launches["serving"]``).
+    Returns the number of queries checked."""
     import numpy as np
     import torch
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -3965,6 +4613,29 @@ def _small_write_reference(dev) -> int:
                   f"small written store, mesh={bool(kw)}, budget={budget}: "
                   f"{r.counts.tolist()} != {want}")
             n += len(want)
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.serve import A1Server
+    served = {}
+    for spmd in (False, True):
+        kw = dict(use_spmd=True, mesh=make_mesh(4, dev)) if spmd else {}
+        srv = A1Server(db, caps=caps, read_batch=8, read_deadline_ms=1e9,
+                       **kw)
+        _cuda.reset_launches()
+        ids = [srv.submit_query(q) for q in qs]
+        srv.flush_queries()
+        if spmd:
+            mesh = dict(_cuda.LAUNCHES)
+        rows = [srv.query_result(i) for i in ids]
+        check(all(r["status"] == "OK" and not r["failed"] for r in rows)
+              and [r["count"] for r in rows] == want,
+              f"served small written store, use_spmd={spmd}: "
+              f"{[r.get('count') for r in rows]} != {want}")
+        served[spmd] = (rows, srv.stats["read_waves"])
+        n += len(want)
+    check(served[True] == served[False], "served: mesh differs from local")
+    db.task_queue = None
+    launches["serving"] = {k: launches.get("serving", {}).get(k, 0) + v
+                           for k, v in mesh.items()}
     return n
 
 
@@ -4789,6 +5460,9 @@ def phase_kernel_report(launches, best, extra=None):
                                   "dedup_compact_rows", "sort_rows")),
                        ("maintenance", ("searchsorted_left_ranged", "expand",
                                         "dedup_compact_rows", "sort_rows")),
+                       ("serving", ("searchsorted_left_ranged", "expand",
+                                    "dedup_compact_rows", "sort_pairs",
+                                    "searchsorted_left")),
                        ("nearest", ("knn_topk", "dedup_compact_rows")),
                        ("nearest_shared", ("knn_topk", "sort_pairs")),
                        ("mesh", ("searchsorted_left", "expand",
@@ -4907,6 +5581,7 @@ def main(argv=None) -> int:
         phase_serve_shared(kg, dev, batches, results, peak, launches, caps)
         state = phase_write(kg, dev, WRITE_REHEARSE, launches, caps_kw=caps)
         phase_maintenance(kg, dev, MAINT_REHEARSE, state, launches, load_s)
+        phase_serving(kg, dev, SERVE_REHEARSE, state, launches)
         phase_nearest(dev, NEAREST_REHEARSE, 1, launches, caps)
         kg, _ = phase_load(dev, KG_REHEARSE, dict(A1_MESH, cap_v=5_000,
                                                   cap_e=20_000, cap_idx=5_000),
@@ -4920,7 +5595,7 @@ def main(argv=None) -> int:
         phase_zoo(dev, ZOO_REHEARSE, launches, rec)
         rec.restore()
         phase_durability(dev, DUR_REHEARSE, launches)
-        phase_small_reference(dev)
+        phase_small_reference(dev, launches)
         print("chip_smoke: CPU rehearsal finished; no GPU result",
               file=sys.stderr)
         return 1
@@ -4938,6 +5613,7 @@ def main(argv=None) -> int:
         del batches, results
         state = phase_write(kg, dev, WRITE_FULL, launches, rec)
         phase_maintenance(kg, dev, MAINT_FULL, state, launches, load_s, rec)
+        phase_serving(kg, dev, SERVE_FULL, state, launches, rec)
         del kg, state
         torch.cuda.empty_cache()
         phase_nearest(dev, NEAREST_FULL, BATCHES, launches)
@@ -4953,8 +5629,8 @@ def main(argv=None) -> int:
         phase_zoo(dev, ZOO_FULL, launches, rec)
         rec.restore()
         phase_durability(dev, DUR_FULL, launches)
+        phase_small_reference(dev, launches)
         phase_kernel_report(launches, rec.best, rec.extra)
-        phase_small_reference(dev)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -60,7 +60,6 @@ class Backend:
 
 REF = Backend("ref")
 KERNEL = Backend("kernel")
-DEDUP_MAX_W = _dedup_kernel.MAX_W     # the widest row the dedup kernel takes
 
 
 def resolve_device(device=None) -> torch.device:
@@ -153,7 +152,7 @@ def sort_rows(x, *, backend: Backend):
 def dedup_compact_rows(x, cap: int, *, backend: Backend):
     """(R, W) candidates (PAD = invalid) -> ((R, cap) sorted-unique regions,
     (R,) unique counts).  The §3.4 per-hop compaction; counts > cap is the
-    fast-fail condition.  The kernel takes W up to ``DEDUP_MAX_W``."""
+    fast-fail condition.  The kernel takes W up to its ``MAX_W_WIDE``."""
     if backend.is_kernel:
         return _dedup_kernel.dedup_compact_rows(x, cap)
     return _dedup_ref.dedup_compact_rows(x, cap)

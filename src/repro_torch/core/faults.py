@@ -12,6 +12,9 @@ Sites wired in the port:
 ``engine.wave``                   start of ``GraphDB.query``: a wave
                                   execution exception (``raise``) or a
                                   slow-wave straggler (``stall``)
+``serve.wave.stall``              serve dispatch, before the base run
+``serve.continuation.stale``      serve sweep: ``race`` force-expires all
+                                  continuation tokens (stale-token storm)
 ``tasks.quantum``                 task-queue pump: a low-priority worker
                                   crash mid-quantum
 ``tasks.compaction.handoff``      background compaction, before
@@ -22,10 +25,15 @@ Sites wired in the port:
                                   whole ship round; lag grows, watermarks
                                   must NOT advance, and acked commits stay
                                   acked
+``primary.crash.midwave``         serve ``_close_write_wave``, after the
+                                  commit but before results are stored:
+                                  ``raise`` kills the primary at the worst
+                                  moment; failover must answer the
+                                  committed-but-unacked txns exactly once
 ================================  =========================================
 
-The serving, cluster, transport, membership and primary sites of the JAX
-package come with those modules (ROADMAP queue 1, items 11 and 12).
+The cluster, transport and membership sites of the JAX package come with
+the fleet (ROADMAP queue 1, item 12).
 
 Firing is seeded: a site fires on an explicit schedule of visit indices
 (``times=``) and/or with probability ``prob`` drawn from a per-``(seed,

@@ -220,25 +220,6 @@ def _delta_rows(key_rows, m, d_key, dnbr, dtyp, dcre, ddel, et_q, ts_q):
     return torch.where(hit, dnbr[None, :], _NULL)
 
 
-def _fit_delta(dn, row_w: int, backend: backend_mod.Backend):
-    """A wave's candidate rows, ``row_w`` columns, must fit the dedup
-    kernel's ``DEDUP_MAX_W``.  With full delta logs they do not: F + 2 (E +
-    delta window), 69,632 columns at the a1-kg caps.  Then the delta
-    matches ``dn`` (NULL where none) are packed left and cut to the most
-    any row holds (one host read of that count).  The dedup depends on
-    neither the candidates' order nor the NULL columns, so the regions are
-    the same; the ref backend takes any width and is not packed."""
-    if not backend.is_kernel or row_w <= backend_mod.DEDUP_MAX_W:
-        return dn
-    R = dn.shape[0]
-    hit = dn >= 0
-    pos = torch.cumsum(hit, dim=1, dtype=torch.int32) - 1
-    W = max(int(pos[:, -1].max()) + 1, 1) if R else 1
-    out = torch.full((R, W + 1), _NULL, dtype=dn.dtype, device=dn.device)
-    out.scatter_(1, torch.where(hit, pos, W).long(), dn)
-    return out[:, :W]
-
-
 def _check_rows(st, rows, valid, ts_q, tvt_q, preds):
     """Fused liveness/type/predicate check on (R, F) frontier regions;
     ``tvt_q``/``preds`` are per-unit tables (parked units carry -1 / no
@@ -302,8 +283,10 @@ def _select_rows(st, cfg, g, valid, ts_q, select, K: int):
 # ---------------------------------------------------------------------------
 
 # one program per batch *shape* (tuple of plans), LRU-bounded: batch shapes
-# are combinatorial
+# are combinatorial; hits mean a steady serving mix never rebuilds one (the
+# serving tier reports the hit rate)
 _CACHE: collections.OrderedDict = collections.OrderedDict()
+CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
 CACHE_MAX_PROGRAMS = 256
 
 
@@ -324,8 +307,9 @@ OVERFLOW_STATS = {"failed_queries": 0, "shared_ovf_queries": 0,
 
 def reset_stats() -> None:
     """Zero the observability counters (not the program cache): they are
-    process-global, so a fresh database or benchmark run resets them."""
-    for d in (FRONTIER_STATS, OVERFLOW_STATS):
+    process-global, so a fresh database, server or benchmark run resets
+    them."""
+    for d in (CACHE_STATS, FRONTIER_STATS, OVERFLOW_STATS):
         for k in d:
             d[k] = 0
 
@@ -379,13 +363,16 @@ def _cache_get(key):
     fn = _CACHE.get(key)
     if fn is not None:
         _CACHE.move_to_end(key)
+        CACHE_STATS["hits"] += 1
     return fn
 
 
 def _cache_put(key, fn) -> None:
+    CACHE_STATS["misses"] += 1
     _CACHE[key] = fn
     while len(_CACHE) > CACHE_MAX_PROGRAMS:
         _CACHE.popitem(last=False)
+        CACHE_STATS["evictions"] += 1
 
 
 def compile_batch(cfg: StoreConfig, plans: tuple, caps: QueryCaps,
@@ -479,7 +466,6 @@ def compile_batch(cfg: StoreConfig, plans: tuple, caps: QueryCaps,
             act = wave["act"]
             # parked units carry their finished frontier through the wave
             parts_g, parts_v = [g], [valid & ~act[:, None]]
-            row_w = F + (wave["any_out"] + wave["any_in"]) * (E + S * dwin)
             for direction, dmask, present in (
                     ("out", wave["is_out"], wave["any_out"]),
                     ("in", ~wave["is_out"], wave["any_in"])):
@@ -499,9 +485,8 @@ def compile_batch(cfg: StoreConfig, plans: tuple, caps: QueryCaps,
                 dslot, dnbr, dtyp, dcre, ddel = window_shard_major(
                     edges_mod._delta_arrays(store, direction),
                     S, cfg.cap_delta, dwin)
-                dn = _fit_delta(_delta_rows(g, m, dslot * S + d_shard, dnbr,
-                                            dtyp, dcre, ddel, wave["etype"],
-                                            ts_r), row_w, backend)
+                dn = _delta_rows(g, m, dslot * S + d_shard, dnbr, dtyp, dcre,
+                                 ddel, wave["etype"], ts_r)
                 parts_g += [out_n, dn]
                 parts_v += [out_n >= 0, dn >= 0]
             g, valid, ovf = _dedup_rows(torch.cat(parts_g, dim=1),
@@ -902,7 +887,6 @@ def compile_batch_spmd(cfg: StoreConfig, plans: tuple, caps: QueryCaps,
                 # 3) worker step: my CSR block + delta log
                 parts_g = [g[me]]
                 parts_v = [valid[me] & ~act[:, None]]   # parked pairs stay
-                row_w = F + (wave["any_out"] + wave["any_in"]) * (E + dwin)
                 for direction, dmask, present in (
                         ("out", wave["is_out"], wave["any_out"]),
                         ("in", ~wave["is_out"], wave["any_in"])):
@@ -921,9 +905,8 @@ def compile_batch_spmd(cfg: StoreConfig, plans: tuple, caps: QueryCaps,
                                          wave["etype"], ts_r[me], E, backend)
                     # my delta block is one shard: window [:dwin]
                     dslot, dnbr, dtyp, dcre, ddel = (a[:dwin] for a in delta)
-                    dn = _fit_delta(_delta_rows(ag // S, m, dslot, dnbr, dtyp,
-                                                dcre, ddel, wave["etype"],
-                                                ts_r[me]), row_w, backend)
+                    dn = _delta_rows(ag // S, m, dslot, dnbr, dtyp, dcre,
+                                     ddel, wave["etype"], ts_r[me])
                     parts_g += [out_n, dn]
                     parts_v += [out_n >= 0, dn >= 0]
                 g[me], valid[me], ovf3 = _dedup_rows(

@@ -50,6 +50,12 @@
 //      firsts below cap; PAD fills the rest.
 // One launch a call and one block a row: no grid-wide wait, no allocation.
 // Rows up to 2,048 columns take a block of 256 threads, wider ones 1,024.
+//
+// The per-warp digit counts are 16-bit (two a word, 16 KB a block) up to
+// kNarrowMaxW columns.  The dedup takes wider rows too (a hedged retry at
+// 4x the a1-kg caps expands ~147,000 candidates a row): the same routine,
+// instantiated with 32-bit counts (32 KB a block, so fewer keys stay in
+// shared memory), both key buffers then being global rows of its scratch.
 #include <cuda_runtime.h>
 
 namespace {
@@ -63,11 +69,18 @@ constexpr int kRadix = 256;              // 8-bit digits
 constexpr int kItems = 8;                // keys a lane has in flight at once
 constexpr int kSmemMax = 232448;         // shared memory a block may use
 constexpr int kRed = 128;                // words of reduction and scan scratch
+constexpr int kNarrowMaxW = 57856;       // widest row of 16-bit digit counts
+constexpr int kWideMaxW = 1073741824;    // widest dedup row (positions in int)
+
+// A per-warp digit count: 16 bits up to kNarrowMaxW columns, else 32.
+using Narrow = unsigned short;
+using Wide = unsigned;
 
 // Shared memory a block of `threads` needs besides its keys: the per-warp
-// 16-bit digit counts, the 256 bucket starts and the scratch words.
-__host__ __device__ constexpr int fixed_bytes(int threads) {
-  return threads / 32 * kRadix * 2 + kRadix * 4 + kRed * 4;
+// digit counts (count_bytes each), the 256 bucket starts and the scratch
+// words.
+__host__ __device__ constexpr int fixed_bytes(int threads, int count_bytes) {
+  return threads / 32 * kRadix * count_bytes + kRadix * 4 + kRed * 4;
 }
 
 __device__ __forceinline__ unsigned lanemask_lt() {
@@ -96,17 +109,17 @@ __device__ __forceinline__ unsigned match_digit(unsigned dg, unsigned among) {
 // inside each bucket follow from the counts, and the warp then writes its
 // keys in order, 32 at a time, each group ranked by match_digit.  Warps,
 // and keys inside a warp, go in index order, so the pass is stable.  Three
-// block barriers a pass.
-template <bool kDropPad>
+// block barriers a pass.  C is the count type (Narrow: two counts a word).
+template <bool kDropPad, typename C>
 __device__ void radix_pass(const int* src, int n_src, int* dst, unsigned mn,
-                           int shift, unsigned short* hist, unsigned* start,
-                           int* red) {
+                           int shift, C* hist, unsigned* start, int* red) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int warps = blockDim.x >> 5;
   const unsigned lt = lanemask_lt();
-  unsigned short* wh = hist + warp * kRadix;
+  C* wh = hist + warp * kRadix;
   unsigned* wh32 = (unsigned*)wh;
-  for (int i = lane; i < kRadix / 2; i += 32) wh32[i] = 0u;
+  constexpr int kWords = kRadix * (int)sizeof(C) / 4;
+  for (int i = lane; i < kWords; i += 32) wh32[i] = 0u;
   __syncwarp();
   const int seg = (n_src + (int)blockDim.x - 1) / (int)blockDim.x * 32;
   const int lo = min(n_src, warp * seg), hi = min(n_src, lo + seg);
@@ -118,15 +131,19 @@ __device__ void radix_pass(const int* src, int n_src, int* dst, unsigned mn,
       v[j] = i < hi ? (kDropPad ? __ldg(src + i) : src[i]) : kPad;
     }
 #pragma unroll
-    for (int j = 0; j < kItems; ++j) {   // two 16-bit counts a word
+    for (int j = 0; j < kItems; ++j) {   // Narrow: two counts a word
       const unsigned dg = (((unsigned)v[j] - mn) >> shift) & 255u;
-      if (base + j * 32 + lane < hi && (!kDropPad || v[j] != kPad))
-        atomicAdd(wh32 + (dg >> 1), 1u << ((dg & 1u) << 4));
+      if (base + j * 32 + lane < hi && (!kDropPad || v[j] != kPad)) {
+        if (sizeof(C) == 2)
+          atomicAdd(wh32 + (dg >> 1), 1u << ((dg & 1u) << 4));
+        else
+          atomicAdd(wh32 + dg, 1u);
+      }
     }
   }
   __syncthreads();
   // bucket b (thread b): each warp's start inside the bucket (below n, so
-  // 16 bits hold it), then the buckets' starts by a scan of their totals
+  // C holds it), then the buckets' starts by a scan of their totals
   unsigned tot = 0;
   if (tid < kRadix) {
     unsigned c[kDedupThreads / 32];     // every count's load in flight
@@ -135,7 +152,7 @@ __device__ void radix_pass(const int* src, int n_src, int* dst, unsigned mn,
       c[k] = k < warps ? hist[k * kRadix + tid] : 0u;
 #pragma unroll
     for (int k = 0; k < kDedupThreads / 32; ++k) {
-      if (k < warps) hist[k * kRadix + tid] = (unsigned short)tot;
+      if (k < warps) hist[k * kRadix + tid] = (C)tot;
       tot += c[k];
     }
   }
@@ -168,7 +185,7 @@ __device__ void radix_pass(const int* src, int n_src, int* dst, unsigned mn,
       const unsigned before = valid ? (unsigned)wh[dg] : 0u;
       __syncwarp();
       if (valid && (peers & lt) == 0)
-        wh[dg] = (unsigned short)(before + __popc(peers));
+        wh[dg] = (C)(before + __popc(peers));
       __syncwarp();
       if (valid) dst[start[dg] + before + __popc(peers & lt)] = v[j];
     }
@@ -176,19 +193,21 @@ __device__ void radix_pass(const int* src, int n_src, int* dst, unsigned mn,
   __syncthreads();
 }
 
-// A block's shared memory: fixed_bytes(blockDim.x), then key_cap words for
-// keys.
+// A block's shared memory: fixed_bytes(blockDim.x, sizeof(C)), then
+// key_cap words for keys.
+template <typename C>
 struct Smem {
-  unsigned short* hist;   // per-warp digit counts
+  C* hist;                // per-warp digit counts
   unsigned* start;        // the 256 bucket starts
   int* red;               // kRed words of reduction and scan scratch
   int* keys;              // key_cap words
 };
 
-__device__ __forceinline__ Smem carve(unsigned char* dsm) {
-  Smem s;
-  s.hist = (unsigned short*)dsm;
-  s.start = (unsigned*)(dsm + (blockDim.x >> 5) * kRadix * 2);
+template <typename C>
+__device__ __forceinline__ Smem<C> carve(unsigned char* dsm) {
+  Smem<C> s;
+  s.hist = (C*)dsm;
+  s.start = (unsigned*)(dsm + (blockDim.x >> 5) * kRadix * sizeof(C));
   s.red = (int*)(s.start + kRadix);
   s.keys = s.red + kRed;
   return s;
@@ -206,9 +225,10 @@ struct SortedRow {
 // memory when they fit, else in the global rows a_glob and b_glob (w words
 // each; a_glob is used only when n > key_cap, b_glob only when 2n >
 // key_cap).  Ends behind a block barrier.
+template <typename C>
 __device__ SortedRow radix_sort_row(const int* __restrict__ xr, int w,
-                                    const Smem& s, int key_cap, int* a_glob,
-                                    int* b_glob) {
+                                    const Smem<C>& s, int key_cap,
+                                    int* a_glob, int* b_glob) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int warps = blockDim.x >> 5;
   int* red = s.red;
@@ -320,7 +340,8 @@ sort_radix_kernel(const int* __restrict__ x, int* __restrict__ out,
   const int tid = threadIdx.x;
   const long long r = blockIdx.x;
   int* o = out + r * w;
-  const SortedRow row = radix_sort_row(x + r * w, w, carve(dsm), key_cap, o,
+  const SortedRow row = radix_sort_row(x + r * w, w, carve<Narrow>(dsm),
+                                       key_cap, o,
                                        scratch + r * w);
   // 3. the sorted valid keys (unless A is the output row), then PAD
   if (row.passes == 0) {
@@ -334,7 +355,8 @@ sort_radix_kernel(const int* __restrict__ x, int* __restrict__ out,
 
 // Dedup/compact every row: scratch holds [R][w] words for B, then (when w >
 // key_cap) another [R][w] for A, for key buffers that do not fit in shared
-// memory.
+// memory.  C: the digit counts' type (Wide past kNarrowMaxW columns).
+template <typename C>
 __global__ void __launch_bounds__(kDedupThreads)
 dedup_radix_kernel(const int* __restrict__ x, int* __restrict__ out,
                    int* __restrict__ counts, int* __restrict__ scratch, int R,
@@ -343,7 +365,7 @@ dedup_radix_kernel(const int* __restrict__ x, int* __restrict__ out,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int warps = blockDim.x >> 5;
   const long long r = blockIdx.x;
-  const Smem s = carve(dsm);
+  const Smem<C> s = carve<C>(dsm);
   int* red = s.red;
   int* o = out + r * cap;
   const SortedRow row = radix_sort_row(x + r * w, w, s, key_cap,
@@ -403,17 +425,19 @@ dedup_radix_kernel(const int* __restrict__ x, int* __restrict__ out,
   if (tid == 0) counts[r] = total;
 }
 
-// A launch's shape for rows of w columns: threads, dynamic shared memory
-// (fixed_bytes + room for two buffers of w keys, at most kSmemMax) and the
-// keys that room holds.
+// A launch's shape for rows of w columns: threads, the counts' width (wide
+// past kNarrowMaxW), dynamic shared memory (fixed_bytes + room for two
+// buffers of w keys, at most kSmemMax) and the keys that room holds.
 struct Launch {
   int threads, bytes, key_cap;
+  bool wide;
 };
 
 Launch launch_for(int w) {
   Launch l;
   l.threads = w <= kDedupSmallW ? kDedupThreadsSmall : kDedupThreads;
-  const int fixed = fixed_bytes(l.threads);
+  l.wide = w > kNarrowMaxW;
+  const int fixed = fixed_bytes(l.threads, l.wide ? 4 : 2);
   const long long want = fixed + 8LL * w;
   l.bytes = (int)(want < kSmemMax ? want : kSmemMax);
   l.key_cap = (l.bytes - fixed) / 4;
@@ -426,17 +450,31 @@ cudaError_t shared_limit(const void* fn, int bytes) {
                               bytes);
 }
 
+template <typename C>
+cudaError_t launch_dedup(const Launch& l, const void* x, void* out,
+                         void* counts, void* scratch, int n_rows, int w,
+                         int cap, void* stream) {
+  cudaError_t err = shared_limit((const void*)dedup_radix_kernel<C>, l.bytes);
+  if (err != cudaSuccess) return err;
+  if (n_rows > 0)
+    dedup_radix_kernel<C><<<n_rows, l.threads, l.bytes, (cudaStream_t)stream>>>(
+        (const int*)x, (int*)out, (int*)counts, (int*)scratch, n_rows, w, cap,
+        l.key_cap);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Sort every row of x (n_rows x w) into out.  scratch holds scratch_words
-// words: 0 when two key buffers of w keys fit in shared memory, else
-// n_rows * w; less returns cudaErrorInvalidValue.
+// Sort every row of x (n_rows x w, w <= kNarrowMaxW) into out.  scratch
+// holds scratch_words words: 0 when two key buffers of w keys fit in shared
+// memory, else n_rows * w; less, or a wider row, returns
+// cudaErrorInvalidValue.
 extern "C" int sort_rows(const void* x, void* out, void* scratch,
                          long long scratch_words, int n_rows, int w,
                          void* stream) {
   const Launch l = launch_for(w);
   const long long need = 2LL * w <= l.key_cap ? 0 : (long long)n_rows * w;
-  if (need > scratch_words) return (int)cudaErrorInvalidValue;
+  if (l.wide || need > scratch_words) return (int)cudaErrorInvalidValue;
   cudaError_t err = shared_limit((const void*)sort_radix_kernel, l.bytes);
   if (err != cudaSuccess) return (int)err;
   if (n_rows > 0)
@@ -445,22 +483,21 @@ extern "C" int sort_rows(const void* x, void* out, void* scratch,
   return (int)cudaGetLastError();
 }
 
-// Dedup/compact every row of x (n_rows x w) into out (n_rows x cap) and
-// counts (n_rows).  scratch holds scratch_words words: 0 when two key
-// buffers of w keys fit in shared memory, else n_rows * w (w <= key_cap) or
-// 2 * n_rows * w; less returns cudaErrorInvalidValue.
+// Dedup/compact every row of x (n_rows x w, w <= kWideMaxW) into out
+// (n_rows x cap) and counts (n_rows).  scratch holds scratch_words words: 0
+// when two key buffers of w keys fit in shared memory, else n_rows * w (w <=
+// key_cap) or 2 * n_rows * w; less, or a wider row, returns
+// cudaErrorInvalidValue.
 extern "C" int dedup_compact_rows(const void* x, void* out, void* counts,
                                   void* scratch, long long scratch_words,
                                   int n_rows, int w, int cap, void* stream) {
   const Launch l = launch_for(w);
   const long long need = 2LL * w <= l.key_cap
       ? 0 : (long long)n_rows * w * (w <= l.key_cap ? 1 : 2);
-  if (need > scratch_words) return (int)cudaErrorInvalidValue;
-  cudaError_t err = shared_limit((const void*)dedup_radix_kernel, l.bytes);
-  if (err != cudaSuccess) return (int)err;
-  if (n_rows > 0)
-    dedup_radix_kernel<<<n_rows, l.threads, l.bytes, (cudaStream_t)stream>>>(
-        (const int*)x, (int*)out, (int*)counts, (int*)scratch, n_rows, w, cap,
-        l.key_cap);
-  return (int)cudaGetLastError();
+  if (w > kWideMaxW || need > scratch_words)
+    return (int)cudaErrorInvalidValue;
+  return (int)(l.wide ? launch_dedup<Wide>(l, x, out, counts, scratch, n_rows,
+                                           w, cap, stream)
+                      : launch_dedup<Narrow>(l, x, out, counts, scratch,
+                                             n_rows, w, cap, stream));
 }

@@ -27,10 +27,15 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.dedup_compact.ref import (PAD, compact_sorted,
                                                   pack_pairs, unpack_pairs)
 
-# widest row of sort_rows and dedup_compact_rows: the radix routine's
-# 16-bit per-warp digit counts need W below 2**16 (the value is the width
-# the earlier row-resident sort held in one block's shared memory)
+# widest row of sort_rows, and of dedup_compact_rows' narrow route: the
+# radix routine's 16-bit per-warp digit counts need W below 2**16 (the
+# value is the width the earlier row-resident sort held in one block's
+# shared memory; kNarrowMaxW in the source)
 MAX_W = (232_448 - 1_024) // 4
+# widest row of dedup_compact_rows: past MAX_W the kernel runs its wide
+# route, the same routine with 32-bit digit counts; positions stay in an
+# int (kWideMaxW)
+MAX_W_WIDE = 1 << 30
 # widest flat pair sort: positions stay in an int, and a bucket's count
 # below it fits the 30 bits a look-back word gives it
 MAX_PAIRS = 1 << 30
@@ -102,10 +107,11 @@ def dedup_compact_rows_plain(x, cap: int):
 def dedup_key_cap(W: int) -> int:
     """Keys a sort or dedup block holds in shared memory (csrc
     ``key_cap``): what is left of ``fixed_bytes`` + 8 W, at most SMEM_MAX,
-    after the per-warp digit counts, the bucket starts and the scratch
-    words."""
+    after the per-warp digit counts (2 bytes each up to MAX_W columns, 4
+    past it), the bucket starts and the scratch words."""
     threads = DEDUP_THREADS_SMALL if W <= DEDUP_SMALL_W else DEDUP_THREADS
-    fixed = threads // 32 * RADIX * 2 + RADIX * 4 + DEDUP_RED * 4
+    count_bytes = 2 if W <= MAX_W else 4
+    fixed = threads // 32 * RADIX * count_bytes + RADIX * 4 + DEDUP_RED * 4
     return (min(fixed + 8 * W, SMEM_MAX) - fixed) // 4
 
 
@@ -174,10 +180,10 @@ def _check(x, what: str):
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
 
 
-def _check_width(W: int, what: str):
-    if W > MAX_W:
-        raise ValueError(f"{what}: row width {W} exceeds the {MAX_W} columns "
-                         "one block holds in shared memory")
+def _check_width(W: int, what: str, limit: int):
+    if W > limit:
+        raise ValueError(f"{what}: row width {W} exceeds the kernel's "
+                         f"{limit} columns")
 
 
 def sort_rows(x):
@@ -188,7 +194,7 @@ def sort_rows(x):
         return sort_rows_plain(x)
     _cuda.require_cuda(x)
     R, W = x.shape
-    _check_width(W, "sort_rows")
+    _check_width(W, "sort_rows", MAX_W)
     n_scratch = sort_scratch_words(R, W)          # 0, or R rows of W
     buf = torch.empty((2 * R if n_scratch else R, W), dtype=torch.int32,
                       device=x.device)
@@ -210,13 +216,15 @@ _SORT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
 def dedup_compact_rows(x, cap: int):
     """(R, W) candidates (PAD = invalid) -> ((R, cap) sorted-unique regions,
     (R,) unique counts before the cap).  On CUDA the outputs and the
-    kernel's scratch are one allocation."""
+    kernel's scratch are one allocation; rows wider than MAX_W (a hedged
+    retry at 4x the a1-kg caps expands ~147,000 candidates a row) take the
+    kernel's wide route, up to MAX_W_WIDE."""
     _check(x, "dedup_compact_rows")
     if x.device.type == "cpu":
         return dedup_compact_rows_plain(x, cap)
     _cuda.require_cuda(x)
     R, W = x.shape
-    _check_width(W, "dedup_compact_rows")
+    _check_width(W, "dedup_compact_rows", MAX_W_WIDE)
     n_scratch = dedup_scratch_words(R, W)
     buf = torch.empty((R * cap + R + n_scratch,), dtype=torch.int32,
                       device=x.device)

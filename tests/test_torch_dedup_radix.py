@@ -102,10 +102,12 @@ def test_plain_matches_the_pallas_kernel():
 # the kernel, emulated
 # ---------------------------------------------------------------------------
 
-def _radix_pass(src, n_src, mn, shift, warps, items, drop_pad):
-    """radix_pass: warp w counts its segment's digits (16-bit counts), the
-    bucket scan gives starts, each warp writes its keys 32 at a time, each
-    group ranked by its lanes of one digit; returns dst (garbage past n)."""
+def _radix_pass(src, n_src, mn, shift, warps, items, drop_pad,
+                count_bits=16):
+    """radix_pass: warp w counts its segment's digits (``count_bits``-bit
+    counts), the bucket scan gives starts, each warp writes its keys 32 at
+    a time, each group ranked by its lanes of one digit; returns dst
+    (garbage past n)."""
     threads = warps * 32
     seg = -(-n_src // threads) * 32
     keys = [src[min(n_src, w * seg):min(n_src, w * seg + seg)]
@@ -121,7 +123,7 @@ def _radix_pass(src, n_src, mn, shift, warps, items, drop_pad):
                 np.add.at(hist[w], digit[w][sl][valid[w][sl]], 1)
     total = hist.sum(0)
     warp_start = np.cumsum(hist, 0) - hist          # inside each bucket
-    assert warp_start.max() < 2**16                 # 16-bit counts
+    assert warp_start.max() < 2**count_bits         # the counts' width
     start = np.cumsum(total) - total
     dst = np.full(max(1, int(total.sum())), 0x5A5A5A5A, np.int64)
     for w in range(warps):
@@ -137,7 +139,7 @@ def _radix_pass(src, n_src, mn, shift, warps, items, drop_pad):
 
 
 def emulate_row(x, *, warps=4, items=2, key_cap=None, seed=0,
-                a_global="global"):
+                a_global="global", count_bits=16):
     """radix_sort_row (steps 1 and 2, shared by both kernels) on one row;
     returns (A[0, n) after the passes or None when there are none, n, the
     valid keys' min, passes, the buffers the passes wrote).  ``a_global``
@@ -165,18 +167,21 @@ def emulate_row(x, *, warps=4, items=2, key_cap=None, seed=0,
             (a_global if into_a else "global")
         wrote.append(("A" if into_a else "B", where))
         src = _radix_pass(src, n_src, mn, 8 * p, warps, items,
-                          drop_pad=p == 0 and not gather)[:n]
+                          drop_pad=p == 0 and not gather,
+                          count_bits=count_bits)[:n]
         n_src = n
     assert wrote[-1][0] == "A"
     return src, n, mn, passes, wrote
 
 
-def emulate(x, cap, *, warps=4, items=2, key_cap=None, seed=0):
+def emulate(x, cap, *, warps=4, items=2, key_cap=None, seed=0,
+            count_bits=16):
     """dedup_radix_kernel on one row; returns (out, count, passes, the
     buffers the passes wrote)."""
     threads = warps * 32
     a, n, mn, passes, wrote = emulate_row(x, warps=warps, items=items,
-                                          key_cap=key_cap, seed=seed)
+                                          key_cap=key_cap, seed=seed,
+                                          count_bits=count_bits)
     out = np.full(cap, PAD, np.int64)
     if passes == 0:
         total = int(n > 0 and mn != -1)
@@ -270,3 +275,61 @@ def test_python_mirrors_the_source():
     assert dk.sort_scratch_words(4, 26_816) == 0
     assert dk.sort_scratch_words(4, 26_817) == 4 * 26_817
     assert dk.sort_scratch_words(2, dk.MAX_W) == 2 * dk.MAX_W
+
+
+@pytest.mark.parametrize("cap", [64, 16_384, 70_000])
+def test_wide_rows_equal_the_ref(cap):
+    """Rows wider than MAX_W (a hedge at 4x the a1-kg caps expands ~147,000
+    candidates a row), which the kernel takes by its wide route: the
+    wrapper's plain version equals the ref backend's sort and compaction,
+    counts before the cap included."""
+    from repro_torch.kernels.dedup_compact import ref as dref
+    rng = np.random.default_rng(17)
+    W = dk.MAX_W + 1_000
+    x = rng.integers(0, 40_000, (3, W)).astype(np.int32)
+    x[0, rng.random(W) < 0.3] = PAD
+    x[1, :] = PAD
+    x[1, :5] = [7, 7, 3, 3, 9]
+    x[2, rng.random(W) < 0.9] = PAD
+    xt = torch.as_tensor(x)
+    got_g, got_n = dk.dedup_compact_rows(xt, cap)
+    want_g, want_n = dref.dedup_compact_rows(xt, cap)
+    assert torch.equal(got_g, want_g) and torch.equal(got_n, want_n)
+    assert got_n.tolist()[1] == 3 and (got_n[0] > 16_384).item()
+
+
+def test_wide_route_counts_past_16_bits():
+    """The wide route's shapes mirror the source (32-bit digit counts past
+    kNarrowMaxW columns, so fewer keys in shared memory; both key buffers
+    in the scratch), and its emulation at the kernel's block (32 warps, 8
+    keys a lane in flight) equals the plain version on a row of 80,000
+    valid keys whose first pass puts them all in one bucket: a warp's start
+    there passes 2**16, which 16-bit counts would wrap (their emulation
+    refuses the row)."""
+    src = SRC.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert dk.MAX_W == const("kNarrowMaxW")
+    assert dk.MAX_W_WIDE == const("kWideMaxW")
+    assert "l.wide = w > kNarrowMaxW;" in src
+    assert "fixed_bytes(l.threads, l.wide ? 4 : 2)" in src
+    wide_cap = (dk.SMEM_MAX - (32 * 256 * 4 + 256 * 4 + 128 * 4)) // 4
+    assert dk.dedup_key_cap(dk.MAX_W + 1) == wide_cap == 49_536
+    assert dk.dedup_key_cap(dk.MAX_W) == 53_632
+    assert dk.dedup_scratch_words(3, 147_471) == 2 * 3 * 147_471
+    with pytest.raises(ValueError, match="exceeds"):
+        dk._check_width(dk.MAX_W_WIDE + 1, "dedup_compact_rows",
+                        dk.MAX_W_WIDE)
+    rng = np.random.default_rng(5)
+    W = 80_000
+    x = (rng.integers(0, 256, W) * 256).astype(np.int32)
+    x[:3] = PAD
+    want_g, want_n = dk.dedup_compact_rows(torch.as_tensor(x[None]), 300)
+    kw = dict(warps=32, items=8, key_cap=dk.dedup_key_cap(W))
+    out, count, passes, wrote = emulate(x, 300, count_bits=32, **kw)
+    np.testing.assert_array_equal(out, want_g[0].numpy())
+    assert count == int(want_n[0]) == 256 and passes == 2
+    assert wrote == [("B", "global"), ("A", "global")]
+    with pytest.raises(AssertionError):
+        emulate(x, 300, count_bits=16, **kw)

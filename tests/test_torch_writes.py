@@ -378,25 +378,25 @@ def written_kg():
 def test_dedup_rows_wider_than_the_kernel_are_packed(mesh, written_kg,
                                                      monkeypatch):
     """A wave over a store with full delta logs holds F + 2 (E + delta
-    window) candidates a row, up to 69,632 at the a1-kg caps, over the
-    dedup kernel's row.  The planner then packs the delta matches; with
-    the kernel's width set to 0 here, every kernel-path wave of a small
-    written store packs, and the results equal the reference's."""
+    window) candidates a row, up to 69,632 at the a1-kg caps, past the
+    dedup kernel's 16-bit-count route (MAX_W).  The kernel takes such rows
+    whole by its wide route, so no layer packs them any more: on a small
+    written store, per-query and through ``mesh=``, the kernel path hands
+    the dedup the reference path's rows, column for column (no delta
+    match packed, none cut), and the results equal the reference's."""
     from repro_torch.core import backend as backend_mod
-    from repro_torch.core.query import planner
     from repro_torch.core.query.executor import QueryCaps
     from repro_torch.dist.mesh import make_mesh
     kg = written_kg
     db = kg.db
-    packs = []
+    seen = {"kernel": [], "ref": []}
 
-    def fit(dn, row_w, backend):
-        out = fit0(dn, row_w, backend)
-        packs.append((dn.shape[1], out.shape[1]))
-        return out
-    fit0 = planner._fit_delta
-    monkeypatch.setattr(planner, "_fit_delta", fit)
-    monkeypatch.setattr(backend_mod, "DEDUP_MAX_W", 0)
+    def dedup(x, cap, *, backend):
+        seen[backend.kind].append((x.clone(), cap))
+        return dedup0(x, cap, backend=backend)
+    dedup0 = backend_mod.dedup_compact_rows
+    monkeypatch.setattr(backend_mod, "dedup_compact_rows", dedup)
+    assert not hasattr(backend_mod, "DEDUP_MAX_W")
     dks = [int(k) for k in kg.director_keys]
     batch = []
     for j, d in enumerate(dks):
@@ -412,11 +412,12 @@ def test_dedup_rows_wider_than_the_kernel_are_packed(mesh, written_kg,
     kw = dict(caps=QueryCaps(frontier=64, expand=256), fused=True,
               mesh=make_mesh(4, device="cpu") if mesh else None)
     got = db.query(batch, backend="kernel", **kw)
-    assert packs and all(w <= d for d, w in packs)
-    assert any(w < d for d, w in packs)
-    n = len(packs)
     want = db.query(batch, backend="ref", **kw)
-    assert all(w == d for d, w in packs[n:])   # the ref backend never packs
+    assert seen["kernel"] and len(seen["kernel"]) == len(seen["ref"])
+    for (xk, ck), (xr, cr) in zip(seen["kernel"], seen["ref"]):
+        assert ck == cr and torch.equal(xk, xr)
+    # the rows carry the delta window whole: more columns than F + E
+    assert max(x.shape[1] for x, _ in seen["kernel"]) > 64 + 256
     assert not got.failed and got.failed == want.failed
     assert np.array_equal(got.counts, want.counts)
     assert np.array_equal(got.rows_gid, want.rows_gid)
