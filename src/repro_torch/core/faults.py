@@ -21,19 +21,36 @@ Sites wired in the port:
                                   ``try_handoff``: ``race`` simulates a
                                   concurrent structural mutation so the
                                   shadow must rebuild
-``replication.ship.drop``         replication sweep: ``race`` drops the
-                                  whole ship round; lag grows, watermarks
-                                  must NOT advance, and acked commits stay
-                                  acked
+``cluster.worker.crash``          cluster frontend, before routing a
+                                  request to its coordinator: ``race``
+                                  kills the target worker first (the
+                                  mid-pagination crash the takeover
+                                  contract must survive)
+``cluster.route.stale``           cluster frontend, on continuation
+                                  routing: ``race`` routes the token to a
+                                  *wrong* coordinator (stale SLB view); the
+                                  receiver must bounce it back by ownership
+                                  stamp, never answer from the wrong state
+``transport.drop``                transport channel, per frame: ``race``
+                                  drops the frame; clients must retransmit
+                                  and result polling must stay idempotent
+``membership.heartbeat.drop``     membership renewal: ``race`` loses that
+                                  heartbeat (the frame never arrived); the
+                                  lease keeps aging toward suspect/evict
+``membership.lease.expire``       membership ``tick``: ``race``
+                                  force-expires the current primary's lease
+                                  (straight to evict) so failover runs
+                                  without waiting out real time
+``replication.ship.drop``         replication sweep / the frontend's wave
+                                  fan-out: ``race`` drops the whole ship
+                                  round; lag grows, watermarks must NOT
+                                  advance, and acked commits stay acked
 ``primary.crash.midwave``         serve ``_close_write_wave``, after the
                                   commit but before results are stored:
                                   ``raise`` kills the primary at the worst
                                   moment; failover must answer the
                                   committed-but-unacked txns exactly once
 ================================  =========================================
-
-The cluster, transport and membership sites of the JAX package come with
-the fleet (ROADMAP queue 1, item 12).
 
 Firing is seeded: a site fires on an explicit schedule of visit indices
 (``times=``) and/or with probability ``prob`` drawn from a per-``(seed,

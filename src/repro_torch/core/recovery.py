@@ -28,6 +28,7 @@ default, which raises without a GPU).
 from __future__ import annotations
 
 import collections
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -183,24 +184,41 @@ def _wire_db(s: dict, store: GraphStore) -> GraphDB:
     return db
 
 
-_EXPORTED: set = set()      # segments this process created (and tracks)
-
-
 def _shm_attach(name: str):
-    """Map an exporter's shared-memory segment without leaving it with
-    this process's resource tracker, which would unlink it at exit: only
-    the exporter owns its lifetime.  Python 3.13 has ``track=False``;
-    before it, attaching registers, which is undone here unless this
-    process exported the segment itself (its one registration is then the
-    exporter's)."""
+    """Map an exporter's shared-memory segment without registering it
+    with the resource tracker, which would unlink it at exit: only the
+    exporter owns its lifetime.  Python 3.13 has ``track=False``; before
+    it, the registration is skipped.  (A spawned worker shares its
+    parent's tracker, so registering and unregistering there would strike
+    the exporter's own registration.)"""
     from multiprocessing import resource_tracker, shared_memory
     try:
         return shared_memory.SharedMemory(name=name, track=False)
     except TypeError:
-        shm = shared_memory.SharedMemory(name=name)
-        if shm._name not in _EXPORTED:
-            resource_tracker.unregister(shm._name, "shared_memory")
-        return shm
+        register = resource_tracker.register
+        resource_tracker.register = lambda *a, **k: None
+        try:
+            return shared_memory.SharedMemory(name=name)
+        finally:
+            resource_tracker.register = register
+
+
+@contextlib.contextmanager
+def _populated(shm, *, writable: bool):
+    """A second mapping of a segment's pages, populated as it is made
+    (``MAP_POPULATE``): one call maps every page where the segment's own
+    mapping faults them in one by one."""
+    import mmap
+    prot = mmap.PROT_READ | (mmap.PROT_WRITE if writable else 0)
+    pages = mmap.mmap(shm._fd, shm.size, prot=prot, flags=mmap.MAP_SHARED
+                      | getattr(mmap, "MAP_POPULATE", 0))
+    try:
+        yield pages
+    finally:
+        try:
+            pages.close()
+        except BufferError:
+            pass        # views outlive an error; the mapping goes with them
 
 
 def attach_shared(manifest: dict, *, device=None) -> GraphDB:
@@ -212,15 +230,23 @@ def attach_shared(manifest: dict, *, device=None) -> GraphDB:
     never reach a sibling or the segment, the one host copy of record.  The
     mapping is closed once the fields are copied; the exporter owns
     unlinking (:meth:`FastRestartCache.drop`)."""
+    import warnings
     dev = resolve_device(device)
     shm = _shm_attach(manifest["segment"])
     try:
-        arrays = {fname: np.ndarray(shape, dtype=np.dtype(dtype),
-                                    buffer=shm.buf, offset=off)
-                  for fname, (off, shape, dtype)
-                  in manifest["fields"].items()}
-        store = _store_on(arrays, dev)
-        del arrays
+        # a read-only mapping of the same pages, populated as it is made:
+        # the copies onto the card read it several times faster than the
+        # segment's own read-write mapping, whose pages fault in one by one
+        with _populated(shm, writable=False) as pages:
+            arrays = {fname: np.ndarray(shape, dtype=np.dtype(dtype),
+                                        buffer=pages, offset=off)
+                      for fname, (off, shape, dtype)
+                      in manifest["fields"].items()}
+            with warnings.catch_warnings():
+                # read-only views, copied at once: nothing writes through
+                warnings.filterwarnings("ignore", message=".*not writable")
+                store = _store_on(arrays, dev)
+            del arrays
     finally:
         shm.close()
     return _wire_db(manifest["meta"], store)
@@ -288,11 +314,11 @@ class FastRestartCache:
             fields[fname] = (off, a.shape, a.dtype.str)
             off += a.nbytes
         shm = shared_memory.SharedMemory(create=True, size=max(off, 1))
-        for fname, a in arrs.items():
-            np.ndarray(a.shape, dtype=a.dtype, buffer=shm.buf,
-                       offset=fields[fname][0])[...] = a
+        with _populated(shm, writable=True) as pages:
+            for fname, a in arrs.items():
+                np.ndarray(a.shape, dtype=a.dtype, buffer=pages,
+                           offset=fields[fname][0])[...] = a
         self._shm[name] = shm
-        _EXPORTED.add(shm._name)
         meta = {k: v for k, v in s.items() if k != "store"}
         return {"segment": shm.name, "fields": fields, "meta": meta}
 
@@ -300,6 +326,5 @@ class FastRestartCache:
         self._slots.pop(name, None)
         shm = self._shm.pop(name, None)
         if shm is not None:
-            _EXPORTED.discard(shm._name)
             shm.close()
             shm.unlink()

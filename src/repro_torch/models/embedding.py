@@ -3,7 +3,7 @@
 Port of ``gspmd_lookup`` from ``repro/models/embedding.py``: a plain row
 gather, padding ids (< 0) giving zero rows.  On one device the table is
 not sharded, so the gather is local.  The query-shipping lookup over a
-mesh, ``a1_ship_lookup``, comes with ROADMAP queue 1 items 12-13.
+mesh, ``a1_ship_lookup``, comes with ROADMAP queue 1 item 12b.
 """
 from __future__ import annotations
 

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.core.tree import tree_map
 
-FLEET_ITEM = "ROADMAP queue 1 item 12 (the fleet: NCCL across cards)"
+FLEET_ITEM = "ROADMAP queue 1 item 12b (the fleet across cards: NCCL)"
 
 
 def compress_int8(x):
