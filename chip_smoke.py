@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's A1 read and write paths, its maintenance,
-durability, serving and fleet paths, LM serving and training paths and
-GNN/recsys zoo on one NVIDIA GPU and check them.
+durability, serving and fleet paths, LM serving and training paths, the
+LM zoo (dense and MoE) and GNN/recsys zoo on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py            # the whole run (one GPU)
     python3 chip_smoke.py --quick    # build and check the kernels only
@@ -116,6 +117,22 @@ Phases, each printed on its own line:
      ring that wraps), ``lm/prefill_32k`` and ``lm/decode_32k`` in bf16,
      timed, each checked against ``backend="ref"``; the profiled bf16
      prefill must have run only the tensor-core ``flash_fwd`` kernel;
+ 9d. lm_zoo — qwen3-moe-235b (grouped top-8 MoE, GQA 64/4), llama4-maverick
+     (dense | top-1 MoE, GQA 40/8), qwen1.5-32b (MHA, qkv bias) and
+     llama3-405b (d_model 16384, GQA 128/8) at full width, weights drawn
+     from a seed, the recorder's kernel inputs parked on the host: for
+     each, one cycle in float32 over 4,096 positions (``forward_hidden``
+     and ``prefill`` on the kernel path against ``backend="ref"``; each
+     MoE layer's dispatch, grouped and global, against a per-expert loop:
+     the kept pairs and ``drop_frac`` equal, the aux loss within 1e-6),
+     qwen3-moe's decode steps against ``forward`` (2 layers, float32), then
+     the bf16 cells, each printed as an LM_ZOO line:
+     ``lm_zoo/<arch>/prefill_32k`` (32,768 tokens, layers cut to 4 / 2 /
+     8 / 2, 8 timed calls, against ``backend="ref"``, profiled, only the
+     tensor-core ``flash_fwd``; its ``flash_fwd`` and ``rmsnorm_fwd``
+     inputs timed for the kernel report's ``at_<cell>``) and
+     ``lm_zoo/qwen3-moe-235b-a22b/decode_32k`` (2 layers, batch 128, a
+     32,768-slot cache, 16 steps);
  9b. lm_train — after phase 9's weights and cache are freed:
      ``lm/train_check_f32`` (4 of the 24 layers in float32 over 4,608
      tokens: ``loss_fn`` and every gradient on the kernel path against
@@ -124,7 +141,9 @@ Phases, each printed on its own line:
      step: the first step's loss, gradient norm and gradients against
      ``backend="ref"``, then 2 warm-up and 8 timed steps on one batch whose
      loss must fall; the profiled step must have run only the tensor-core
-     ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` kernels);
+     ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` kernels); the
+     first step's gradients through ``ef_compress_grads(axis_name=)`` over
+     4 shards (a scale each), equal to the formula bit for bit (EF_MESH);
  9c. zoo — after phase 9b's model is freed, gcn-cora, graphsage-reddit
      and bst FULL (float32, AdamW with f32 moments) at their shape cells:
      ``zoo/gcn-cora/full_graph_sm`` (``cora_like(1.0)``) and
@@ -141,10 +160,14 @@ Phases, each printed on its own line:
      an ELL of each node's first 25 in-neighbours, ``embedding_bag`` over
      BST's item table with the train batch's histories as bags), and
      ``segment_spmm`` against the model's ``common.spmm`` on cora;
+     ``a1_ship_lookup`` over ``make_mesh(4)`` on BST's table with the
+     histories as ids (tails padded) equal to ``gspmd_lookup`` bit for bit
+     (SHIP_LOOKUP);
  10. kernels — each kernel at the inputs the main path gave it: its
-     launches during phases 5-9c, 11b and 11 (by path: ``write``,
+     launches during phases 5-9d, 11b and 11 (by path: ``write``,
      ``maintenance`` for 6c and 11b together, ``serving`` for 6d and
-     11's mesh serving, and ``fleet`` for 6e, among them), its time
+     11's mesh serving, ``fleet`` for 6e, and ``lm_zoo/<arch>/<cell>``
+     for each of 9d's cells, among them), its time
      beside the plain version's, the
      bound and a library call, as one JSON line; a kernel under 0.5 ms and
      its library call are timed again as 20 calls in one CUDA graph
@@ -181,7 +204,7 @@ Phases, each printed on its own line:
      field by field; then ``export_shared`` and two ``attach_shared``
      onto the card (a write to one leaves the other); a RECOVER line.
 
-Each of phases 5-9b sets the kernels' launch counts to 0 just before its
+Each of phases 5-9d sets the kernels' launch counts to 0 just before its
 timed batches, calls or steps (per budget mode or cell) and reads them just
 after (the write phase around the whole phase: its launches are its
 read-back queries'; phases 6c and 11b likewise, into one count; phase 6d
@@ -191,14 +214,15 @@ launches, in their own processes, uncounted here); phase 9c does so
 around its kernel calls.
 Any failed check raises, so the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 before
-printing any result.  ``--rehearse`` runs phases 4-9c (6d and 6e among
-them), 11b and 11 at a tiny size on the CPU (plain kernel versions, no
-build) and then exits 1.
+printing any result.  ``--rehearse`` runs phases 4-9d (6d, 6e and 9d, at
+the REDUCED configs, among them), 11b and 11 at a tiny size on the CPU
+(plain kernel versions, no build) and then exits 1.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -207,15 +231,17 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from repro_torch.configs import a1_kg  # noqa: E402  (the checkout's, or fail)
+
 I32MAX = 2**31 - 1
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 
-# a1-kg (src/repro/configs/a1_kg.py): one shard of FULL, the shape-cell caps
-A1_SHARD = dict(n_shards=1, cap_v=15_000_000, cap_e=50_000_000,
-                cap_delta=16_384, cap_idx=16_000_000, cap_idx_delta=16_384,
-                d_f32=32, d_i32=16)
-A1_CAPS = dict(frontier=4096, expand=16384, bucket=256, results=64)
+# a1-kg (configs/a1_kg.py): one shard of FULL, the shape-cell caps
+A1_SHARD = dict(dataclasses.asdict(a1_kg.FULL), n_shards=1)
+A1_CAPS = dict(a1_kg.SPEC.cell("serve_q1").geometry["caps"])
 KG_FULL = dict(n_films=3_500_000, n_actors=10_000_000, n_directors=1_000_000,
                n_genres=64)
 BATCHES = 8                     # timed batches per serve cell
@@ -1559,9 +1585,12 @@ class Recorder:
 
     # further calls timed beside the largest: knn_topk's largest one-row
     # call (nearest_k8/b1), dedup_compact_rows' and sort_rows' largest on
-    # the mesh path, and dedup_compact_rows' largest wide-route call in the
-    # serving phase (a hedge's rows)
+    # the mesh path, dedup_compact_rows' largest wide-route call in the
+    # serving phase (a hedge's rows), and the LM zoo cell's flash_fwd and
+    # rmsnorm_fwd (timed in phase 9d, see _zoo_kernel_rows)
     EXTRA = {"knn_topk": [("r1", lambda a: a[0].shape[0] == 1)],
+             "flash_fwd": [("lm_zoo", lambda a: ZOO_CELL[0] is not None)],
+             "rmsnorm_fwd": [("lm_zoo", lambda a: ZOO_CELL[0] is not None)],
              "dedup_compact_rows": [
                  ("mesh", lambda a: TIMED_PATH[0] == "mesh"),
                  ("wide", lambda a: TIMED_PATH[0] == "serving"
@@ -1588,6 +1617,22 @@ class Recorder:
     def restore(self):
         for name, mod in self.mods.items():
             setattr(mod, name, self.orig[name])
+
+    def park(self, dev):
+        """Every recorded input moved to ``dev`` (the host while phase 9d
+        needs the card's memory, the card again after it)."""
+        import torch
+
+        def move(a):
+            if isinstance(a, torch.Tensor):
+                return a.to(dev)
+            if isinstance(a, (tuple, list)):
+                return type(a)(move(x) for x in a)
+            return a
+        for book in (self.best, self.extra):
+            for key, (size, args, kw) in list(book.items()):
+                book[key] = (size, move(args),
+                             {k: move(v) for k, v in kw.items()})
 
 
 def _dk():
@@ -4334,20 +4379,30 @@ def phase_profile(db, cell, qs, p50_s, **kw):
     _profile(cell, lambda: db.query(qs, backend="kernel", **kw), p50_s)
 
 
-def _profile(cell, fn, p50_s, **extra):
+def _profile(cell, fn, p50_s, warm=False, **extra):
     """Device busy time and kernel launches of one call of ``fn``
     (profiler): the share of it in the port's own kernels, and the busy
     time against the profiled call's wall time and the unprofiled p50
     latency.  The whole table goes to ``profile_<cell>.txt`` in the output
-    directory.  Returns {kernel name: launches} of the device events."""
+    directory.  Returns {kernel name: launches} of the device events.
+    With ``warm`` a first call of ``fn`` runs as the profiler's warm-up
+    step (tracing on, its events dropped): late in a run a profile has
+    lost the first ~50 kernels of its call (one layer of a prefill)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 if warm else None) as prof:
+        if warm:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+        if warm:
+            prof.step()
     kern = _device_events(prof)
     busy_us = sum(e.self_device_time_total for e in kern)
     own_us = sum(e.self_device_time_total for e in kern if _is_own(e.key))
@@ -4370,20 +4425,44 @@ def _profile(cell, fn, p50_s, **extra):
     return {e.key: e.count for e in kern}
 
 
-def _check_tc_route(cell, counts, launched: dict):
+PROFILE_TRIES = 5   # profiles of one call _check_tc_route may take
+
+
+def _check_tc_route(cell, profiled, launched: dict):
     """The profiled call of a bf16 LM cell ran each flash wrapper's
     tensor-core kernel once a wrapper launch (``launched``: {wrapper:
     launches a call, as ``_lm_launch_check`` holds them}) and never its
-    CUDA-core kernel."""
+    CUDA-core kernel.  ``profiled()`` profiles one call (``_profile``)
+    and returns its counts (a warm profile, see ``_profile``).  The
+    profiler has lost the first ~50 kernels of a call late in a full run
+    on the H100 (23 of 24 tensor-core kernels, none of them the CUDA-core
+    kernel); a profile that shows fewer tensor-core kernels than launches
+    and no CUDA-core kernel is taken again, up to PROFILE_TRIES in all.  A
+    CUDA-core kernel fails at once."""
     import re
-    for name, n in launched.items():
-        tc, cores = TC_ROUTE[name]
-        got = {k: sum(c for key, c in counts.items()
-                      if re.search(rf"\b{k}\b", key)) for k in (tc, cores)}
-        check(got[tc] == n and got[cores] == 0,
-              f"{cell}: {name} launched {n} times, the profile shows "
-              f"{got[tc]} {tc} and {got[cores]} {cores}")
-    say("ROUTE", cell=cell, tensor_core_launches=launched)
+    short = []
+    for _ in range(PROFILE_TRIES):
+        counts = profiled()
+        got = {}
+        for name in launched:
+            got[name] = {k: sum(c for key, c in counts.items()
+                                if re.search(rf"\b{k}\b", key))
+                         for k in TC_ROUTE[name]}
+        for name, n in launched.items():
+            tc, cores = TC_ROUTE[name]
+            check(got[name][cores] == 0 and got[name][tc] <= n,
+                  f"{cell}: {name} launched {n} times, the profile shows "
+                  f"{got[name][tc]} {tc} and {got[name][cores]} {cores}")
+        if all(got[name][TC_ROUTE[name][0]] == n
+               for name, n in launched.items()):
+            break
+        short.append({name: got[name][TC_ROUTE[name][0]]
+                      for name in launched})
+    else:
+        check(False, f"{cell}: {PROFILE_TRIES} profiles each showed fewer "
+              f"tensor-core kernels than the {launched} launched: {short}")
+    say("ROUTE", cell=cell, tensor_core_launches=launched,
+        profiles_short_of_events=short)
 
 
 # ---------------------------------------------------------------------------
@@ -4400,8 +4479,11 @@ def _lm_weights(cfg, dev, seed: int):
     from repro_torch.models import transformer as T
     gen = torch.Generator(device=dev).manual_seed(seed)
     p = T.init_params(cfg, gen, device=dev)
-    p["embed"] = torch.randn(p["embed"].shape, generator=gen,
-                             device=dev).to(cfg.dtype)
+    if cfg.dtype == torch.float32:      # in place: no second f32 table
+        p["embed"].normal_(generator=gen)
+    else:
+        p["embed"] = torch.randn(p["embed"].shape, generator=gen,
+                                 device=dev).to(cfg.dtype)
     for t in [p["ln_f"]] + [b[n] for b in p["blocks"] for n in ("ln1",
                                                                  "ln2")]:
         t.copy_(1 + 0.1 * torch.randn(t.shape, generator=gen, device=dev))
@@ -4563,10 +4645,9 @@ def phase_lm_prefill(dev, cfg, p, sizes, launches, rec):
         rel_err_vs_ref=err, tolerance=LM_BF16_TOL,
         argmax_ties_swapped=swapped)
     if dev.type == "cuda":
-        counts = _profile("lm_prefill_32k", lambda: T.prefill(p, cfg, toks),
-                          p50)
-        _check_tc_route("lm/prefill_32k", counts,
-                        {"flash_fwd": cfg.n_layers})
+        _check_tc_route("lm/prefill_32k", lambda: _profile(
+            "lm_prefill_32k", lambda: T.prefill(p, cfg, toks), p50,
+            warm=True), {"flash_fwd": cfg.n_layers})
 
 
 def phase_lm_decode(dev, cfg, p, sizes, launches):
@@ -4662,6 +4743,553 @@ def phase_lm(dev, cfg, sizes, launches, rec):
 
 
 # ---------------------------------------------------------------------------
+# phase 9d, the LM zoo: qwen3-moe-235b, llama4-maverick, qwen1.5-32b and
+# llama3-405b at full width, the depth cut
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _zoo_moe_drops():
+    """A context whose value is a list that gets the ``drop_frac`` (a
+    tensor: no sync) of every ``moe_ffn`` call a transformer block makes
+    inside it."""
+    from repro_torch.models import transformer as T
+    drops, orig = [], T.moe_ffn
+
+    def counted(*a, **kw):
+        y, aux = orig(*a, **kw)
+        drops.append(aux["drop_frac"])
+        return y, aux
+    T.moe_ffn = counted
+    try:
+        yield drops
+    finally:
+        T.moe_ffn = orig
+
+
+@contextlib.contextmanager
+def _zoo_routing(replay=None):
+    """Routing held equal between two runs of one model.  Without
+    ``replay``, a context whose value, ``(log, flips)``, gets the experts
+    (``eidx``) of every ``moe._route`` call inside it.  With ``replay`` (a
+    log), every call takes the logged experts in turn, with its own
+    probabilities and the gates they give, and ``flips`` counts [tokens
+    whose own top-k set differed, tokens] over the calls.  Top-k is a step
+    function: where a token's k-th and (k+1)-th probabilities lie within
+    a rounding of each other, the kernel and ref paths may pick either
+    (both right), and the token's output moves by the gate of the expert
+    swapped; holding the routing equal leaves what the two paths compute
+    differently, the kernels' arithmetic."""
+    import torch
+    from repro_torch.models import moe
+    orig, log, flips = moe._route, [], [0, 0]
+
+    def route(xf, router_w, top_k):
+        probs, gate, eidx = orig(xf, router_w, top_k)
+        if replay is None:
+            log.append(eidx)
+            return probs, gate, eidx
+        want = replay[len(log)]
+        log.append(want)
+        flips[0] += int((torch.sort(want, -1).values !=
+                         torch.sort(eidx, -1).values).any(-1).sum())
+        flips[1] += want[..., 0].numel()
+        gate = torch.gather(probs, -1, want)
+        return probs, gate / gate.sum(-1, keepdim=True).clamp(min=1e-9), want
+    moe._route = route
+    try:
+        yield log, flips
+    finally:
+        moe._route = orig
+
+
+def _drop_stats(drops) -> dict:
+    v = [float(d) for d in drops]
+    return dict(mean=sum(v) / len(v), max=max(v), calls=len(v)) if v \
+        else None
+
+
+def _zoo_cut(spec, layers: int, reduced: bool):
+    """The arch's FULL config cut to ``layers`` (REDUCED under the
+    rehearsal, cut alike), with the cut listed."""
+    import dataclasses
+    cfg = spec.reduced if reduced else spec.model
+    n = min(layers, cfg.n_layers)
+    return dataclasses.replace(cfg, n_layers=n), \
+        [f"n_layers {cfg.n_layers} -> {n}"] if n != cfg.n_layers else []
+
+
+def _moe_reference(x, router, we1, we3, we2, top_k, cf, groups):
+    """An independent MoE layer, float32: softmax routing, ``torch.topk``,
+    and for each expert in turn each token's rank among the tokens of its
+    group that picked the expert (a cumulative count), the first C kept,
+    their gate times the expert's SwiGLU added to the output.  Returns (y,
+    aux loss, drop fraction, the kept pairs as token * E + expert,
+    sorted)."""
+    import torch
+    import torch.nn.functional as F
+    T, D = x.shape
+    E = router.shape[1]
+    G = groups if groups and groups > 1 and T % groups == 0 else 1
+    Tg = T // G
+    C = max(-(-int(cf * Tg * top_k / E) // 8) * 8, 8)
+    probs = torch.softmax(x @ router, dim=-1)
+    gate, eidx = torch.topk(probs, top_k, dim=-1)
+    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+    aux = E * torch.sum(probs.mean(0) *
+                        F.one_hot(eidx[:, 0], E).float().mean(0))
+    y = torch.zeros_like(x)
+    kept = []
+    for e in range(E):
+        hit = eidx == e
+        picked = hit.any(-1).view(G, Tg)
+        rank = picked.int().cumsum(1) - 1
+        tok = (picked & (rank < C)).view(-1).nonzero()[:, 0]
+        w = (gate * hit).sum(-1)[tok]
+        xt = x[tok]
+        h = F.silu(xt @ we1[e]) * (xt @ we3[e])
+        y.index_add_(0, tok, w[:, None] * (h @ we2[e]))
+        kept.append(tok * E + e)
+    kept = torch.sort(torch.cat(kept)).values
+    drop = 1.0 - torch.tensor(float(kept.numel()), device=x.device) / \
+        (T * top_k)
+    return y, aux, drop, kept
+
+
+def _moe_dispatch_check(dev, cfg, p, j, tokens: int, groups: int, seed):
+    """``moe_ffn`` on one full-width MoE layer (pattern position ``j``,
+    cycle 0 of ``p``, float32) over ``tokens`` random tokens against
+    :func:`_moe_reference`: the kept pairs and the drop fraction equal,
+    the aux loss within 1e-6, the output within LM_F32_TOL."""
+    import torch
+    from repro_torch.core.precision import f32_accumulation
+    from repro_torch.models import moe
+    b = {n: p["blocks"][j][n][0] for n in ("router", "we1", "we3", "we2")}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((tokens, cfg.d_model), generator=gen, device=dev)
+    k, cf = cfg.top_k, cfg.capacity_factor
+    with f32_accumulation():
+        y, aux = moe.moe_ffn(x, b["router"], b["we1"], b["we3"], b["we2"],
+                             top_k=k, capacity_factor=cf, groups=groups)
+        ry, raux, rdrop, rkept = _moe_reference(
+            x, b["router"], b["we1"], b["we3"], b["we2"], k, cf, groups)
+        G = groups if groups > 1 and tokens % groups == 0 else 1
+        C = moe.expert_capacity(tokens // G, cfg.n_experts, k, cf)
+        _, _, eidx = moe._route(x.view(G, tokens // G, -1), b["router"], k)
+        _, e_s, t_s, _, keep = moe._dispatch(eidx, C)
+        tok = t_s + torch.arange(G, device=dev)[:, None] * (tokens // G)
+        kept = torch.sort((tok * cfg.n_experts + e_s)[keep]).values
+    check(torch.equal(kept, rkept), f"moe {cfg.name} groups {groups}: the "
+          f"kept pairs differ ({kept.numel()} vs {rkept.numel()})")
+    check(torch.equal(aux["drop_frac"], rdrop),
+          f"moe {cfg.name}: drop_frac {float(aux['drop_frac'])} vs "
+          f"{float(rdrop)}")
+    aux_err = abs(float(aux["aux_loss"]) - float(raux))
+    err = _rel_err(y, ry)
+    check(aux_err <= 1e-6 and err <= LM_F32_TOL,
+          f"moe {cfg.name} groups {groups}: aux {aux_err}, output {err}")
+    return dict(groups=groups, capacity=C, tokens=tokens,
+                kept=int(kept.numel()), drop_frac=float(rdrop),
+                aux_loss=float(raux), aux_abs_err=aux_err, rel_err=err)
+
+
+def _zoo_f32_check(dev, spec, sizes):
+    """``lm_zoo/<arch>/check_f32``: one cycle of the FULL config in
+    float32 over ``check_seq`` positions, ``forward_hidden`` and
+    ``prefill`` on the kernel path against ``backend="ref"``; then each
+    MoE layer's dispatch against the per-expert reference, grouped and
+    (for a grouped config) global."""
+    import dataclasses
+    import torch
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+    cfg, _ = _zoo_cut(spec, len(spec.model.block_pattern),
+                      sizes["reduced"])
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    S = sizes["check_seq"]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    p = _lm_weights(cfg32, dev, 40)
+    toks = _lm_tokens(cfg, dev, 1, S, 41)
+    errs = {}
+    # the ref attention a quarter of its query rows at a time (the same
+    # arithmetic a row): llama4's float32 cycle holds 73.7 GB of weights
+    rows, attention._ROWS = attention._ROWS, 1024
+    try:
+        with _zoo_moe_drops() as drops, _zoo_routing() as (route, _):
+            hk, ak = T.forward_hidden(p, cfg32, toks, backend="kernel")
+        with _zoo_routing(route) as (_, flips):
+            hr, ar = T.forward_hidden(p, cfg32, toks, backend="ref")
+        errs["hidden"] = _rel_err(hk, hr)
+        errs["aux"] = abs(float(ak) - float(ar)) / max(abs(float(ar)),
+                                                       1e-30)
+        del hk, hr
+        with _zoo_routing() as (route, _):
+            lk, _ = T.prefill(p, cfg32, toks, backend="kernel")
+        with _zoo_routing(route) as (_, flips_p):
+            lr, _ = T.prefill(p, cfg32, toks, backend="ref")
+    finally:
+        attention._ROWS = rows
+    errs["prefill_logits"] = _rel_err(lk, lr)
+    check(lk.shape == (1, cfg.vocab) and
+          max(errs.values()) <= LM_F32_TOL,
+          f"{spec.arch_id} check_f32: kernel vs ref {errs}")
+    moe_checks = []
+    for j, kind in enumerate(cfg.block_pattern):
+        if kind == "moe":
+            for g in dict.fromkeys((cfg.moe_groups, 0)):
+                moe_checks.append(_moe_dispatch_check(
+                    dev, cfg32, p, j, S, g, 42 + g))
+    say("LM_ZOO_CHECK", cell=f"lm_zoo/{spec.arch_id}/check_f32",
+        config=cfg.name, layers=cfg.n_layers, seq=S, dtype="float32",
+        rel_err=errs, tolerance=LM_F32_TOL, drop_frac=_drop_stats(drops),
+        routing_flips=dict(forward=flips, prefill=flips_p),
+        moe_dispatch=moe_checks, peak_bytes=torch.cuda.max_memory_allocated()
+        if dev.type == "cuda" else None)
+    del p, lk, lr
+    _free(dev)
+
+
+def _zoo_moe_grad_check(dev, spec):
+    """``lm_zoo/<arch>/grad_bf16``: one MoE layer of the REDUCED config's
+    widths in bf16 over 256 tokens, the gradients of ``sum(y * ct) +
+    aux_loss`` (x, the router and the experts) on the card against the
+    CPU on the same inputs: the card's expert products go through
+    ``moe._BmmF32`` (bf16 operands, a float32 product, its own backward),
+    the CPU's through float32 casts.  (With top-1 the gate is p / p = 1,
+    so y gives the router only rounding noise; the aux loss gives it its
+    gradient, as in ``loss_fn``.)  The routing must agree (the drop fraction equal, the
+    aux loss within 1e-6), the output within LM_BF16_TOL, each gradient's
+    cosine at least TRAIN_MIN_COSINE."""
+    import torch
+    from repro_torch.models import moe
+    cfg = spec.reduced
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(51)
+    shapes = {"x": (256, D), "router": (D, E), "we1": (E, D, F),
+              "we3": (E, D, F), "we2": (E, F, D)}
+    ins = {n: (torch.randn(sh, generator=gen) * (1.0 if n == "x" else
+                                                 sh[-2] ** -0.5))
+           .to(torch.bfloat16) for n, sh in shapes.items()}
+    ct = torch.randn((256, D), generator=gen)
+    out = {}
+    for d in (cpu, dev):
+        args = [ins[n].to(d).requires_grad_() for n in shapes]
+        y, aux = moe.moe_ffn(*args, top_k=cfg.top_k, groups=cfg.moe_groups,
+                             capacity_factor=cfg.capacity_factor)
+        obj = (y.float() * ct.to(d)).sum() + aux["aux_loss"]
+        grads = torch.autograd.grad(obj, args)
+        out[d.type] = (y.detach().to(cpu),
+                       {k: float(v.detach()) for k, v in aux.items()},
+                       [g.to(cpu) for g in grads])
+    (yc, ac, gc), (yd, ad, gd) = out["cpu"], out[dev.type]
+    err = _rel_err(yd.float(), yc.float())
+    cos = {n: _cosine(a, b) for n, a, b in zip(shapes, gd, gc)}
+    check(ac["drop_frac"] == ad["drop_frac"] and
+          abs(ac["aux_loss"] - ad["aux_loss"]) <= 1e-6 and
+          err <= LM_BF16_TOL and min(cos.values()) >= TRAIN_MIN_COSINE,
+          f"{spec.arch_id} grad_bf16: aux {ad} vs {ac}, output {err}, "
+          f"cosines {cos}")
+    say("LM_ZOO_CHECK", cell=f"lm_zoo/{spec.arch_id}/grad_bf16",
+        dtype="bfloat16", tokens=256, d_model=D, experts=E, expert_d_ff=F,
+        aux=ad, rel_err=err, cosine=cos, tolerance=dict(
+            output=LM_BF16_TOL, min_cosine=TRAIN_MIN_COSINE))
+
+
+def _zoo_decode_consistency(dev, spec, sizes):
+    """``lm_zoo/<arch>/decode_consistency``: the FULL config cut to 2
+    layers in float32, every decode step from an empty cache against
+    ``forward`` at that position.  An MoE output depends on the batch
+    through the capacity (JAX's semantics), so the capacity factor is
+    doubled until ``forward`` drops no token; both runs' drop fractions
+    are printed."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as T
+    cfg, cut = _zoo_cut(spec, 2, sizes["reduced"])
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    B, n = sizes["consist"]
+    p = _lm_weights(cfg32, dev, 43)
+    toks = _lm_tokens(cfg, dev, B, n, 44)
+    tried = []
+    while True:
+        with _zoo_moe_drops() as drops:
+            full, _ = T.forward(p, cfg32, toks)
+        tried.append((cfg32.capacity_factor, _drop_stats(drops)))
+        if max(float(d) for d in drops) == 0.0:
+            break
+        cfg32 = dataclasses.replace(
+            cfg32, capacity_factor=2 * cfg32.capacity_factor)
+    cache = T.init_kv_cache(cfg32, B, n, device=dev)
+    worst = 0.0
+    with _zoo_moe_drops() as dec_drops:
+        for t in range(n):
+            lg, cache = T.decode_step(p, cfg32, toks[:, t:t + 1], cache, t)
+            worst = max(worst, _rel_err(lg, full[:, t]))
+    check(worst <= LM_F32_TOL,
+          f"{spec.arch_id} decode_consistency: {worst}")
+    say("LM_ZOO_CHECK", cell=f"lm_zoo/{spec.arch_id}/decode_consistency",
+        config=cfg.name, reduced=cut, dtype="float32", batch=B, steps=n,
+        rel_err=worst, tolerance=LM_F32_TOL,
+        forward_capacity_factors=tried,
+        decode_drop_frac=_drop_stats(dec_drops))
+    del p, full, cache
+    _free(dev)
+
+
+def _free(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _zoo_kernel_rows(rec, cell):
+    """The recorded flash_fwd and rmsnorm_fwd inputs of a cell's timed
+    calls, timed now (ms, the bound and, for flash_fwd, SDPA's fastest
+    fused setup on them) and kept for the kernel report's ``at_<cell>``;
+    the inputs are let go."""
+    import torch
+    for name in ("flash_fwd", "rmsnorm_fwd"):
+        _, args, kw = rec.extra.pop((name, "lm_zoo"))
+        kern = rec.orig[name]
+
+        def call():
+            return kern(*args, **kw)
+        bound_ms, bound_by = _bound(name, args, kw)
+        row = dict(shapes=[tuple(a.shape) for a in _tensors(args)][:3],
+                   dtype=str(args[0].dtype), ms=_events_ms(call, n=5),
+                   device_ms=_device_ms(call, n=3), bound_ms=bound_ms,
+                   bound_by=bound_by)
+        lib = _sdpa_call(args, kw, rows=args[0].shape[1], n=3) \
+            if name == "flash_fwd" else _library_call(name, args, kw)
+        row.update(library=lib[0] if lib else None,
+                   library_ms=lib[1] if lib else None)
+        ZOO_AT.setdefault(name, {})[cell] = row
+        del args, kw
+    torch.cuda.empty_cache()
+
+
+ZOO_AT = {}        # wrapper -> {cell: its timing at that cell's inputs}
+ZOO_CELL = [None]  # the LM-zoo cell whose calls the recorder keeps
+
+
+def _zoo_prefill(dev, spec, layers, sizes, launches, rec):
+    """``lm_zoo/<arch>/prefill_32k``: the cell's 32,768 tokens in bf16,
+    ``calls`` timed calls after a warm one (launches counted, peak bytes,
+    the MoE layers' drop fractions), then against ``backend="ref"`` on the
+    same prompt, a profiled call that must run only the tensor-core
+    ``flash_fwd``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import transformer as T
+    cfg, cut = _zoo_cut(spec, layers, sizes["reduced"])
+    geo = spec.cell("prefill_32k").geometry
+    B, S = 1, sizes.get("seq", geo["seq_len"])
+    cell = f"lm_zoo/{spec.arch_id}/prefill_32k"
+    t0 = time.perf_counter()
+    p = _lm_weights(cfg, dev, 45)
+    toks = _lm_tokens(cfg, dev, B, S, 46)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    T.prefill(p, cfg, toks)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    ZOO_CELL[0] = cell
+    secs = []
+    with _zoo_moe_drops() as drops:
+        for _ in range(sizes["calls"]):
+            t0 = time.perf_counter()
+            lk, _ = T.prefill(p, cfg, toks)
+            _sync(dev)
+            secs.append(time.perf_counter() - t0)
+    ZOO_CELL[0] = None
+    launches[cell] = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    L = cfg.n_layers
+    _lm_launch_check(launches, cell, {"rmsnorm_fwd": 2 * L + 1,
+                                      "flash_fwd": L}, len(secs), dev)
+    with _zoo_routing() as (route, _):
+        lk, _ = T.prefill(p, cfg, toks)
+    with _zoo_routing(route) as (_, flips):
+        lr, _ = T.prefill(p, cfg, toks, backend="ref")
+    err = _rel_err(lk, lr)
+    check(lk.shape == (B, cfg.vocab) and err <= LM_BF16_TOL,
+          f"{cell}: kernel vs ref {err}")
+    swapped = _same_argmax(lk, lr, LM_BF16_TOL * float(lr.abs().max()),
+                           cell)
+    p50 = float(np.median(secs))
+    attn = _attn_flops(cfg, B, S)
+    # 2 flops a weight a token, less embed (a gather) and the head, which
+    # only the last position goes through
+    body = cfg.n_active_params() - 2 * cfg.vocab * cfg.d_model
+    flops = 2.0 * (body * S + cfg.d_model * cfg.vocab) * B + attn
+    say("LM_ZOO", cell=cell, config=cfg.name,
+        source=LM_ZOO_FILES[spec.arch_id], dtype=str(cfg.dtype),
+        batch=B, seq=S, layers=L,
+        reduced=cut + [f"global_batch {geo['global_batch']} -> {B}"],
+        p50_ms=p50 * 1e3, ms=[x * 1e3 for x in secs],
+        tokens_per_s=B * S / p50, attn_flops=attn,
+        attn_bf16_peak_share=attn / p50 / BF16_OPS_PER_S, flops=flops,
+        bf16_peak_share=flops / p50 / BF16_OPS_PER_S, peak_bytes=peak,
+        weight_bytes=sum(t.numel() * t.element_size()
+                         for _, t in T.leaves(p)),
+        init_s=init_s, drop_frac=_drop_stats(drops),
+        launches_per_call={k: launches[cell][k] / len(secs)
+                           for k in ("rmsnorm_fwd", "flash_fwd")},
+        rel_err_vs_ref=err, tolerance=LM_BF16_TOL, routing_flips=flips,
+        argmax_ties_swapped=swapped)
+    del lk, lr
+    if dev.type == "cuda":
+        _check_tc_route(cell, lambda: _profile(
+            cell.replace("/", "_"), lambda: T.prefill(p, cfg, toks), p50,
+            warm=True), {"flash_fwd": L})
+        _zoo_kernel_rows(rec, cell)
+    rec.extra.pop(("flash_fwd", "lm_zoo"), None)
+    rec.extra.pop(("rmsnorm_fwd", "lm_zoo"), None)
+    del p
+    _free(dev)
+
+
+def _zoo_decode(dev, spec, layers, sizes, launches):
+    """``lm_zoo/<arch>/decode_32k``: the cell's batch of 128 (halved until
+    the cache fits) over a 32,768-slot cache filled from a generator (as
+    after 32k tokens), ``decode_steps`` greedy steps timed after a warm
+    one (launches counted), then one step against ``backend="ref"``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import transformer as T
+    cfg, cut = _zoo_cut(spec, layers, sizes["reduced"])
+    geo = spec.cell("decode_32k").geometry
+    B = sizes.get("decode_batch", geo["global_batch"])
+    S = sizes.get("seq", geo["seq_len"])
+    cell = f"lm_zoo/{spec.arch_id}/decode_32k"
+    p = _lm_weights(cfg, dev, 47)
+    per_seq = 2 * cfg.n_layers * cfg.n_kv_heads * S * cfg.d_head * 2
+    # the f32 copies of one layer's k and v in the decode attention
+    temp = 2 * cfg.n_kv_heads * S * cfg.d_head * 4
+    if dev.type == "cuda":
+        free = torch.cuda.mem_get_info()[0] - (4 << 30)
+        while B > 1 and B * (per_seq + temp) > free:
+            B //= 2
+    cache = T.init_kv_cache(cfg, B, S, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(48)
+    for k, v in cache:
+        k.normal_(generator=gen)
+        v.normal_(generator=gen)
+    steps = sizes["decode_steps"]
+    pos = S - steps - 2
+    tok = _lm_tokens(cfg, dev, B, 1, 49)
+    lg, cache = T.decode_step(p, cfg, tok, cache, pos)
+    tok = lg.argmax(-1, keepdim=True)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    secs = []
+    with _zoo_moe_drops() as drops:
+        for _ in range(steps):
+            pos += 1
+            t0 = time.perf_counter()
+            lg, cache = T.decode_step(p, cfg, tok, cache, pos)
+            tok = lg.argmax(-1, keepdim=True)
+            _sync(dev)
+            secs.append(time.perf_counter() - t0)
+    launches[cell] = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    L = cfg.n_layers
+    _lm_launch_check(launches, cell, {"rmsnorm_fwd": 2 * L + 1,
+                                      "flash_fwd": 0}, steps, dev)
+    pos += 1
+    with _zoo_routing() as (route, _):
+        lk, cache = T.decode_step(p, cfg, tok, cache, pos)
+    with _zoo_routing(route) as (_, flips):
+        lr, cache = T.decode_step(p, cfg, tok, cache, pos, backend="ref")
+    err = _rel_err(lk, lr)
+    check(lk.shape == (B, cfg.vocab) and err <= LM_BF16_TOL,
+          f"{cell}: kernel vs ref {err}")
+    swapped = _same_argmax(lk, lr, LM_BF16_TOL * float(lr.abs().max()),
+                           cell)
+    p50 = float(np.median(secs))
+    attn = 4.0 * cfg.n_heads * cfg.d_head * (pos + 1) * B * L
+    weight_bytes = sum(t.numel() * t.element_size() for _, t in T.leaves(p))
+    bound_s = (B * per_seq + weight_bytes) / HBM_BYTES_PER_S
+    reduced = cut + ([] if B == geo["global_batch"] else
+                     [f"global_batch {geo['global_batch']} -> {B}"])
+    say("LM_ZOO", cell=cell, config=cfg.name,
+        source=LM_ZOO_FILES[spec.arch_id], dtype=str(cfg.dtype),
+        batch=B, cache_slots=S, start_pos=S - steps - 2, steps=len(secs),
+        layers=L, reduced=reduced, p50_ms=p50 * 1e3,
+        ms=[x * 1e3 for x in secs], tokens_per_s=B / p50, attn_flops=attn,
+        attn_bf16_peak_share=attn / p50 / BF16_OPS_PER_S, peak_bytes=peak,
+        cache_bytes=B * per_seq, weight_bytes=weight_bytes,
+        bytes_bound_ms=bound_s * 1e3, bytes_bound_share=bound_s / p50,
+        drop_frac=_drop_stats(drops),
+        launches_per_step={k: launches[cell][k] / steps
+                           for k in ("rmsnorm_fwd", "flash_fwd")},
+        rel_err_vs_ref=err, tolerance=LM_BF16_TOL, routing_flips=flips,
+        argmax_ties_swapped=swapped)
+    if dev.type == "cuda":
+        _profile(cell.replace("/", "_"),
+                 lambda: T.decode_step(p, cfg, tok, cache, pos + 1), p50)
+    del p, cache, lk, lr
+    _free(dev)
+
+
+# phase 9d's cells: (arch, shape id, layers kept), in the order run; the
+# first is the largest float32 check (llama4's one cycle: 73.5 GB of
+# weights), run on the emptiest card
+LM_ZOO_CELLS = (("llama4-maverick-400b-a17b", "prefill_32k", 2),
+                ("qwen3-moe-235b-a22b", "prefill_32k", 4),
+                ("qwen3-moe-235b-a22b", "decode_32k", 2),
+                ("qwen1.5-32b", "prefill_32k", 8),
+                ("llama3-405b", "prefill_32k", 2))
+LM_ZOO_FILES = {
+    "llama4-maverick-400b-a17b": "src/repro/configs/llama4_maverick_400b.py",
+    "qwen3-moe-235b-a22b": "src/repro/configs/qwen3_moe_235b.py",
+    "qwen1.5-32b": "src/repro/configs/qwen15_32b.py",
+    "llama3-405b": "src/repro/configs/llama3_405b.py"}
+LM_ZOO_FULL = dict(reduced=False, calls=8, decode_steps=16, check_seq=4096,
+                   consist=(2, 64))
+LM_ZOO_REHEARSE = dict(reduced=True, calls=2, decode_steps=3, check_seq=64,
+                       consist=(2, 12), seq=96, decode_batch=4)
+
+
+def phase_lm_zoo(dev, sizes, launches, rec):
+    """Phase 9d: per arch, its float32 checks (kernel against ref, MoE
+    dispatch against the per-expert reference, decode against forward for
+    an arch with a decode cell), then its bf16 cells; each config's
+    weights are freed before the next."""
+    import torch
+    from repro_torch.configs import registry
+    t_phase = time.perf_counter()
+    _free(dev)
+    held = torch.cuda.memory_allocated() if dev.type == "cuda" else None
+    rec.only = set()
+    done = set()
+    for arch, shape_id, layers in LM_ZOO_CELLS:
+        spec = registry.get(arch)
+        if arch not in done:
+            done.add(arch)
+            _zoo_f32_check(dev, spec, sizes)
+            if "moe" in spec.model.block_pattern:
+                _zoo_moe_grad_check(dev, spec)
+            if any(a == arch and s == "decode_32k"
+                   for a, s, _ in LM_ZOO_CELLS):
+                _zoo_decode_consistency(dev, spec, sizes)
+        if shape_id == "prefill_32k":
+            _zoo_prefill(dev, spec, layers, sizes, launches, rec)
+        else:
+            _zoo_decode(dev, spec, layers, sizes, launches)
+    say("LM_ZOO_PHASE", seconds=time.perf_counter() - t_phase,
+        held_before=held, cells=[f"lm_zoo/{a}/{s}" for a, s, _ in
+                                 LM_ZOO_CELLS])
+
+
+# ---------------------------------------------------------------------------
 # the LM training path: h2o-danube-3-4b's train_4k
 # ---------------------------------------------------------------------------
 
@@ -4679,6 +5307,52 @@ def _cosine(a, b) -> float:
         dot, na, nb = dot + (x * y).sum(), na + (x * x).sum(), \
             nb + (y * y).sum()
     return float(dot / torch.sqrt(na * nb).clamp(min=1e-30))
+
+
+def _ef_mesh_check(dev, grads, shards: int = 4) -> dict:
+    """``ef_compress_grads(axis_name=)`` over ``shards`` shards of one
+    gradient tree (``grads``: (name, leaf) pairs), a layer of each leaf at
+    a time: shard s holds the gradient times 2 ** (s - 1) (exact in bf16)
+    and an error of its own, so every shard has its own scale.  Each
+    shard's dequantized gradient and new error must equal the formula
+    computed here directly (JAX's: the int32 sum of the int8 payloads times
+    the shard's own scale, over the shard count), bit for bit."""
+    import torch
+    from repro_torch.optim import compression as C
+    gen = torch.Generator(device=dev).manual_seed(50)
+    t0 = time.perf_counter()
+    parts = elems = 0
+    for name, leaf in grads:
+        for part in _slices(leaf):
+            amax = part.float().abs().amax()
+            gs = [part * 2.0 ** (s - 1) for s in range(shards)]
+            es = [torch.randn(part.shape, generator=gen, device=dev) * amax
+                  * 1e-2 for _ in range(shards)]
+            dq, err = C.ef_compress_grads([{"g": g} for g in gs],
+                                          [{"g": e} for e in es],
+                                          axis_name="data")
+            gfs = [g.float() + e for g, e in zip(gs, es)]
+            scales = [torch.clamp(gf.abs().amax(), min=1e-12) / 127.0
+                      for gf in gfs]
+            qs = [torch.clamp(torch.round(gf / sc), -127, 127)
+                  .to(torch.int8) for gf, sc in zip(gfs, scales)]
+            qsum = qs[0].int()
+            for q in qs[1:]:
+                qsum = qsum + q.int()
+            for s in range(shards):
+                want_dq = ((qsum.float() * scales[s]) / shards) \
+                    .to(part.dtype)
+                want_err = gfs[s] - qs[s].float() * scales[s]
+                check(torch.equal(dq[s]["g"], want_dq)
+                      and torch.equal(err[s]["g"], want_err),
+                      f"ef_compress_grads(axis_name=) {name} shard {s}: "
+                      f"not the formula")
+            parts += 1
+            elems += part.numel()
+            del gs, es, dq, err, gfs, qs, qsum
+    _sync(dev)
+    return dict(shards=shards, leaves=len(grads), parts=parts,
+                elements=elems, seconds=time.perf_counter() - t0)
 
 
 def _grad_leaves(grads):
@@ -4785,6 +5459,8 @@ def phase_lm_train(dev, cfg, sizes, launches, rec):
         del g
     (lk, nk, gk, _), (lr, nr, gr, _) = first["kernel"], first["ref"]
     cos = {n: _cosine(a, b) for (n, a), (_, b) in zip(gk, gr)}
+    say("EF_MESH", cell="lm/train_4k", gradient="the first step's, kernel "
+        "path", **_ef_mesh_check(dev, gk))
     loss_err, gnorm_err = abs(lk - lr) / abs(lr), abs(nk - nr) / nr
     check(loss_err <= TRAIN_LOSS_TOL and gnorm_err <= TRAIN_GNORM_TOL
           and min(cos.values()) >= TRAIN_MIN_COSINE,
@@ -4851,8 +5527,9 @@ def phase_lm_train(dev, cfg, sizes, launches, rec):
                                        gnorm=TRAIN_GNORM_TOL,
                                        min_cosine=TRAIN_MIN_COSINE)))
     if dev.type == "cuda":
-        counts = _profile("lm_train_4k", step, p50)
-        _check_tc_route("lm/train_4k", counts,
+        _check_tc_route("lm/train_4k", lambda: _profile("lm_train_4k",
+                                                        step, p50,
+                                                        warm=True),
                         {"flash_fwd": 2 * L, "flash_bwd_dkv": L,
                          "flash_bwd_dq": L})
     del p, state
@@ -5137,6 +5814,36 @@ def _zoo_kernels(dev, ogb, table, hist, launches, rec):
                                                   "embedding_bag")})
 
 
+def _ship_check(dev, table, hist, shards: int = 4):
+    """``a1_ship_lookup`` over ``make_mesh(shards)`` on the card (the
+    table's rows in ``shards`` contiguous blocks) with the BST train
+    batch's histories as ids, each row's tail padded (row % 4 ids of -1):
+    every shard's rows equal ``gspmd_lookup``'s bit for bit."""
+    import torch
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.models.embedding import a1_ship_lookup, gspmd_lookup
+    B, L = hist.shape
+    pad = torch.arange(L, device=hist.device)[None] >= \
+        L - (torch.arange(B, device=hist.device) % 4)[:, None]
+    ids = torch.where(pad, -1, hist)
+    mesh = make_mesh(shards, device=dev)
+    with torch.no_grad():
+        got = a1_ship_lookup(table, ids, mesh)
+        want = gspmd_lookup(table, ids)
+    for s, g in enumerate(got):
+        check(g.shape == want.shape and torch.equal(g, want),
+              f"a1_ship_lookup shard {s}: not gspmd_lookup's rows")
+    timing = {}
+    if dev.type == "cuda":
+        with torch.no_grad():
+            timing = dict(
+                ship_ms=_events_ms(lambda: a1_ship_lookup(table, ids, mesh),
+                                   n=5),
+                gspmd_ms=_events_ms(lambda: gspmd_lookup(table, ids), n=5))
+    say("SHIP_LOOKUP", table=list(table.shape), ids=list(ids.shape),
+        padding=int(pad.sum()), shards=shards, equal=True, **timing)
+
+
 def _zoo_spmm_cross_check(dev, batch):
     """On cora_like(1.0): ``segment_spmm`` with every in-neighbour (K the
     largest in-degree) and norm = 1/deg against the model's own
@@ -5187,6 +5894,7 @@ def phase_zoo(dev, sizes, launches, rec):
     del p, batch, deg
     table_params, hist = _bst_cells(dev, sizes)
     _zoo_kernels(dev, ogb, table_params["item_emb"], hist, launches, rec)
+    _ship_check(dev, table_params["item_emb"], hist)
     del table_params
     _zoo_spmm_cross_check(dev, cora.to(dev))
     if dev.type == "cuda":
@@ -5719,11 +6427,13 @@ def _host_ms(fn, n: int = 20) -> float:
 
 def _device_events(prof):
     """The profiler's device-side entries (kernels, memsets, copies); an
-    operator's own entry repeats its kernels' time, so it is left out."""
+    operator's own entry repeats its kernels' time, so it is left out, and
+    so is a scheduled profile's ``ProfilerStep*`` range on the device."""
     from torch.autograd import DeviceType
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and (e.self_device_time_total or 0) > 0]
+            and (e.self_device_time_total or 0) > 0
+            and not e.key.startswith("ProfilerStep")]
 
 
 def _bound(name, args, kw):
@@ -5979,10 +6689,11 @@ def _fastest(timed):
     return best
 
 
-def _sdpa_call(args, kw, rows=None):
+def _sdpa_call(args, kw, rows=None, n=20):
     """(label, ms) of F.scaled_dot_product_attention on flash_fwd's inputs
     (the first ``rows`` positions, with ``is_causal`` there when the window
-    covers them; else the boolean mask), the fastest of _sdpa_setups."""
+    covers them; else the boolean mask), the fastest of _sdpa_setups, each
+    timed over ``n`` calls."""
     import torch.nn.functional as F
     from torch.nn.attention import sdpa_kernel
     from repro_torch.kernels.flash_attention.ref import attention_mask
@@ -5993,8 +6704,8 @@ def _sdpa_call(args, kw, rows=None):
         q, k, v = (t[:, :rows] for t in (q, k, v))
         Sk = rows
     q4, k4, v4 = (t.reshape(1, -1, t.shape[1], D) for t in (q, k, v))
-    causal_only = rows and kw["causal"] and kw["window"] >= Sk and \
-        kw["q_offset"] == 0
+    causal_only = rows and kw["causal"] and kw["q_offset"] == 0 and \
+        (kw["window"] <= 0 or kw["window"] >= Sk)
     mask = None if causal_only else attention_mask(
         q.shape[1], Sk, causal=kw["causal"], window=kw["window"],
         q_offset=kw["q_offset"], device=q.device)
@@ -6005,7 +6716,7 @@ def _sdpa_call(args, kw, rows=None):
                 return F.scaled_dot_product_attention(
                     q4, kk, vv, attn_mask=mask, is_causal=bool(causal_only),
                     scale=kw["scale"], **gqa)
-        return lambda: _events_ms(call)
+        return lambda: _events_ms(call, n)
     best = _fastest((label, timer(*rest))
                     for label, *rest in _sdpa_setups(k4, v4, G))
     if best is None:
@@ -6233,7 +6944,10 @@ def phase_kernel_report(launches, best, extra=None):
                                         "expand",
                                         "searchsorted_left_ranged")),
                        ("lm_decode", ("rmsnorm_fwd",)),
-                       ("lm_train", LM_KERNELS)):
+                       ("lm_train", LM_KERNELS)) + tuple(
+            (f"lm_zoo/{a}/{c}", ("rmsnorm_fwd", "flash_fwd")
+             if c == "prefill_32k" else ("rmsnorm_fwd",))
+            for a, c, _ in LM_ZOO_CELLS):
         for name in need:
             check(launches[path][name] > 0,
                   f"{name} was not launched on the {path} path")
@@ -6301,6 +7015,8 @@ def phase_kernel_report(launches, best, extra=None):
             if xname == name:
                 row[f"at_{label}"] = _extra_timing(name, kern, plain, xargs,
                                                    xkw)
+        for cell, at in ZOO_AT.get(name, {}).items():
+            row[f"at_{cell}"] = at
         if name == "flash_fwd":
             # the window mask equals the causal one over the first 4096
             # positions: the fused causal attention's time there
@@ -6322,11 +7038,10 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
     ap.add_argument("--rehearse", action="store_true",
-                    help="without a GPU: phases 4-9c, 11b and 11 at a "
+                    help="without a GPU: phases 4-9d, 11b and 11 at a "
                          "tiny size on the CPU, then exit 1")
     args = ap.parse_args(argv)
     import torch
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import h2o_danube_3_4b as danube
     if not torch.cuda.is_available():
         if not args.rehearse:
@@ -6357,6 +7072,7 @@ def main(argv=None) -> int:
         rec = Recorder()
         rec.only = set()
         phase_lm(dev, danube.REDUCED, LM_REHEARSE, launches, rec)
+        phase_lm_zoo(dev, LM_ZOO_REHEARSE, launches, rec)
         phase_lm_train(dev, danube.REDUCED, LM_REHEARSE, launches, rec)
         phase_zoo(dev, ZOO_REHEARSE, launches, rec)
         rec.restore()
@@ -6395,6 +7111,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         rec.only = set()                      # phase_lm records its own
         phase_lm(dev, danube.FULL, LM_FULL, launches, rec)
+        rec.park(torch.device("cpu"))         # phase 9d needs the memory
+        phase_lm_zoo(dev, LM_ZOO_FULL, launches, rec)
+        rec.park(dev)
         phase_lm_train(dev, danube.FULL, LM_FULL, launches, rec)
         phase_zoo(dev, ZOO_FULL, launches, rec)
         rec.restore()

@@ -8,7 +8,7 @@ window-bounded ring buffer.
 """
 import torch
 
-from repro_torch.configs.registry import lm_shapes
+from repro_torch.configs.registry import ArchSpec, lm_shapes, register
 from repro_torch.models.transformer import LMConfig
 
 FULL = LMConfig(
@@ -23,5 +23,10 @@ REDUCED = LMConfig(
     d_ff=256, vocab=512, window=32, block_pattern=("dense",),
     dtype=torch.float32, remat=False)
 
-SHAPES = lm_shapes(window=4096, accum_train=1)
-SOURCE = "arXiv:2401.16818; unverified"
+SPEC = register(ArchSpec(
+    arch_id="h2o-danube-3-4b", family="lm", model=FULL, reduced=REDUCED,
+    shapes=lm_shapes(window=4096, accum_train=1),
+    source="arXiv:2401.16818; unverified",
+    note="SWA window 4096; long_500k decode uses the ring-buffer cache "
+         "(memory O(window), compute O(window) per token)."))
+SHAPES, SOURCE = SPEC.shapes, SPEC.source

@@ -1,9 +1,11 @@
-"""Architecture specs and their shape cells.
+"""Architecture registry: arch id -> model config + shape cells.
 
-Port of ``repro/configs/registry.py``: ``ShapeCell``, ``ArchSpec`` and
-``register``, and the LM, GNN and recsys shape templates.  The lookup side
-(``get``, ``all_archs``, ``all_cells``) comes with ROADMAP queue 1 item
-15e; until then a config module's ``SPEC`` is imported directly.
+Port of ``repro/configs/registry.py``: ``ShapeCell``, ``ArchSpec``,
+``register`` and the lookup (``get``, ``all_archs``, ``all_cells``), and
+the LM, GNN and recsys shape templates.  The lookup imports every config
+module the port has (:data:`CONFIG_MODULES`); the JAX registry's
+``meshgraphnet`` and ``nequip`` are not among them until ROADMAP queue 1
+item 15d ports their models.
 """
 from __future__ import annotations
 
@@ -41,6 +43,40 @@ class ArchSpec:
 def register(spec: ArchSpec) -> ArchSpec:
     _REGISTRY[spec.arch_id] = spec
     return spec
+
+
+def get(arch_id: str) -> ArchSpec:
+    _ensure_loaded()
+    return _REGISTRY[arch_id]
+
+
+def all_archs() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """Every (arch, shape) pair, including skipped cells."""
+    _ensure_loaded()
+    return [(a, c.shape_id) for a in all_archs()
+            for c in _REGISTRY[a].shapes]
+
+
+# the config modules of repro_torch.configs, in the JAX registry's order
+CONFIG_MODULES = ("qwen3_moe_235b", "llama4_maverick_400b", "llama3_405b",
+                  "h2o_danube_3_4b", "qwen15_32b", "gcn_cora",
+                  "graphsage_reddit", "bst", "a1_kg")
+_LOADED = False
+
+
+def _ensure_loaded() -> None:
+    global _LOADED
+    if _LOADED:
+        return
+    import importlib
+    for mod in CONFIG_MODULES:
+        importlib.import_module(f"repro_torch.configs.{mod}")
+    _LOADED = True
 
 
 def lm_shapes(*, window: int = 0, accum_train: int = 16) -> tuple:

@@ -20,7 +20,10 @@ two axes is row-major.  The port keeps that model in one process:
 An SPMD program is written in lockstep: every per-shard step is a loop over
 the mesh's shards, each on its own device, and every collective is one call
 on the whole list, so the programs read like the ``shard_map`` bodies they
-port.  Serving from one process per GPU over NCCL is a later slice.
+port.  The JAX package has no multi-process runtime either: its SPMD
+serving is one controller over the mesh, as here.  The query programs,
+``models/embedding.py::a1_ship_lookup`` and
+``optim/compression.py::ef_compress_grads(axis_name=)`` run on it.
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """Training entry point for the model zoo on one device.
 
 Port of ``repro/launch/train.py`` (``run_training``, ``_batch_source``)
-for the LM family, gcn-cora, graphsage-reddit and bst:
+for every arch of the port's registry (``configs/registry.py::get``) that
+trains: the LM family (dense and MoE), gcn-cora, graphsage-reddit and
+bst:
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch gcn-cora --steps 20 --device cpu
@@ -18,23 +20,18 @@ raise, naming the ROADMAP item that ports them.
 from __future__ import annotations
 
 import argparse
-import importlib
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.configs import registry
 from repro_torch.core.backend import resolve_device
 
 CKPT_ITEM = "ROADMAP queue 1 item 15d (ckpt/manager.py)"
 # arch ids of the zoo whose models are not ported yet
 UNPORTED = {"meshgraphnet": "ROADMAP queue 1 item 15d (meshgraphnet.py)",
             "nequip": "ROADMAP queue 1 item 15d (nequip.py, irreps.py)"}
-# the configs the port has (repro_torch/configs)
-LM_CONFIGS = {"h2o-danube-3-4b": "repro_torch.configs.h2o_danube_3_4b"}
-ZOO_CONFIGS = {"gcn-cora": "repro_torch.configs.gcn_cora",
-               "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
-               "bst": "repro_torch.configs.bst"}
 
 
 def main() -> None:
@@ -55,17 +52,16 @@ def run_training(arch: str, *, steps: int = 50, reduced: bool = True,
     if arch in UNPORTED:
         raise NotImplementedError(
             f"training {arch} is not ported yet: {UNPORTED[arch]}")
-    if arch not in LM_CONFIGS and arch not in ZOO_CONFIGS:
-        raise KeyError(f"no ported config for arch {arch!r}")
+    spec = registry.get(arch)
+    if spec.family == "a1":
+        raise KeyError(f"{arch} is a graph store, not a trained arch")
     if ckpt_dir is not None:
         raise NotImplementedError(
             f"checkpoints (ckpt_dir) are not ported yet: {CKPT_ITEM}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    if arch in LM_CONFIGS:
-        step_fn, params, ocfg, batches = _lm(arch, reduced, gen, seed, dev)
-    else:
-        step_fn, params, ocfg, batches = _zoo(arch, reduced, gen, seed, dev)
+    build = _lm if spec.family == "lm" else _zoo
+    step_fn, params, ocfg, batches = build(spec, reduced, gen, seed, dev)
     from repro_torch.optim.optimizers import init_opt_state
     opt_state = init_opt_state(params, ocfg)
     metrics = {}
@@ -85,15 +81,12 @@ def run_training(arch: str, *, steps: int = 50, reduced: bool = True,
     return {k: float(v) for k, v in metrics.items()}
 
 
-def _lm(arch, reduced, gen, seed, dev):
-    from repro_torch.configs.registry import cell
+def _lm(spec, reduced, gen, seed, dev):
     from repro_torch.launch.steps import (lm_train_step, pick_opt,
                                           train_geometry)
     from repro_torch.models.transformer import init_params
-    conf = importlib.import_module(LM_CONFIGS[arch])
-    cfg = conf.REDUCED if reduced else conf.FULL
-    geo = train_geometry(cell(conf.SHAPES, conf.SHAPES[0].shape_id),
-                         reduced=reduced)
+    cfg = spec.reduced if reduced else spec.model
+    geo = train_geometry(spec.shapes[0], reduced=reduced)
     ocfg = pick_opt(cfg.n_params())
 
     def step_fn(params, opt_state, tokens, targets):
@@ -102,11 +95,10 @@ def _lm(arch, reduced, gen, seed, dev):
             _lm_batches(cfg, geo, seed, dev))
 
 
-def _zoo(arch, reduced, gen, seed, dev):
+def _zoo(spec, reduced, gen, seed, dev):
     from repro_torch.launch import steps
     from repro_torch.models import recsys
     from repro_torch.optim.optimizers import AdamWConfig
-    spec = importlib.import_module(ZOO_CONFIGS[arch]).SPEC
     cell0 = spec.shapes[0]
     ocfg = AdamWConfig()
     if spec.family == "recsys":

@@ -1,5 +1,5 @@
 """GQA transformer LM: serving (prefill and decode) and training of dense
-stacks.
+and MoE stacks.
 
 Port of ``repro/models/transformer.py`` for one device: ``LMConfig`` and
 its parameter counts, ``param_shapes``, ``init_params`` (the JAX init law),
@@ -8,7 +8,10 @@ and ``decode_step``, plus :func:`value_and_grad` (``jax.value_and_grad`` of
 ``loss_fn``).  Parameters are a plain dict laid out like the JAX pytree:
 ``embed`` (vocab, d), ``head`` (d, vocab), ``ln_f`` (d,) and ``blocks``, one
 dict per ``block_pattern`` position whose leaves are stacked over cycles,
-``(C, ...)``; :func:`params_from_numpy` carries a JAX tree across.
+``(C, ...)``; :func:`params_from_numpy` carries a JAX tree across.  A
+``"moe"`` block runs ``models/moe.py::moe_ffn`` over its B * S tokens in
+place of the dense SwiGLU, and the blocks' load-balance losses sum into
+the ``aux`` that ``forward`` returns and ``loss_fn`` weighs in.
 
 The JAX package scans the stacked layers and shards every intermediate; the
 port loops over them on one device, taking the layers of a stacked leaf
@@ -25,9 +28,8 @@ writes the KV cache in place and returns it.  The entry points, and the
 backward of :func:`value_and_grad`, run their matmuls with f32 accumulation
 as XLA does (:func:`_f32_accumulation`).
 
-MoE blocks (``models/moe.py``) and the collective matmul
-(``dist/overlap.py``) raise ``NotImplementedError`` until their slices port
-them.
+The collective matmul (``dist/overlap.py``) raises ``NotImplementedError``
+until its slice ports it.
 """
 from __future__ import annotations
 
@@ -45,9 +47,10 @@ from repro_torch.core.tree import copy_from_numpy, leaves
 from repro_torch.core.tree import value_and_grad as tree_value_and_grad
 from repro_torch.core.tree import set_path as _set
 from repro_torch.models.attention import mha
+from repro_torch.models.moe import moe_ffn
 
-MOE_ITEM = "ROADMAP queue 1 item 15c (models/moe.py and the MoE configs)"
 OVERLAP_ITEM = "ROADMAP queue 1 item 14 (dist/overlap.py)"
+_DRAW = 1 << 28      # init_params' float32 draws: 1 GiB at most
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,9 +158,13 @@ def init_params(cfg: LMConfig, generator: torch.Generator, *, device=None):
             t = torch.ones(shape, dtype=cfg.dtype, device=dev)
         else:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-            t = torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=dev)
-            t = t.mul_(fan_in ** -0.5).to(cfg.dtype)
+            t = torch.empty(shape, dtype=cfg.dtype, device=dev)
+            flat = t.view(-1)
+            for a in range(0, flat.numel(), _DRAW):
+                part = flat[a:a + _DRAW]
+                part.copy_(torch.randn(part.shape, generator=generator,
+                                       dtype=torch.float32, device=dev)
+                           .mul_(fan_in ** -0.5))
         _set(out, path, t)
     return out
 
@@ -179,10 +186,6 @@ def _check_supported(cfg: LMConfig) -> None:
     if cfg.use_collective_matmul:
         raise NotImplementedError(
             f"use_collective_matmul is not ported yet: {OVERLAP_ITEM}")
-    for kind in cfg.block_pattern:
-        if kind != "dense":
-            raise NotImplementedError(
-                f"{kind!r} blocks are not ported yet: {MOE_ITEM}")
 
 
 def _rope(x, positions, theta: float):
@@ -254,12 +257,22 @@ def _ffn_dense(p, x):
     return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
 
 
-def _block(p, cfg: LMConfig, x, positions, be, kv_cache=None,
+def _block(p, cfg: LMConfig, kind: str, x, positions, be, kv_cache=None,
            cache_pos=None):
+    """One layer: (x, aux), aux the MoE block's load-balance loss (a
+    float32 0 for a dense block)."""
+    B, S, D = x.shape
     h = _rmsnorm(x, p["ln1"], backend=be)
     x = x + _attn(p, cfg, h, positions, be, kv_cache, cache_pos)
     h = _rmsnorm(x, p["ln2"], backend=be)
-    return x + _ffn_dense(p, h)
+    if kind == "dense":
+        return x + _ffn_dense(p, h), torch.zeros((), dtype=torch.float32,
+                                                 device=x.device)
+    y, moe_aux = moe_ffn(h.reshape(B * S, D), p["router"], p["we1"],
+                         p["we3"], p["we2"], top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor,
+                         groups=cfg.moe_groups)
+    return x + y.reshape(B, S, D), moe_aux["aux_loss"]
 
 
 def _layers(params, cfg: LMConfig):
@@ -277,7 +290,8 @@ def _layers(params, cfg: LMConfig):
 @_f32_accumulation()
 def forward_hidden(params, cfg: LMConfig, tokens, positions=None, *,
                    backend=None):
-    """Trunk only: tokens (B, S) -> hidden (B, S, D), aux (0 for dense)."""
+    """Trunk only: tokens (B, S) -> hidden (B, S, D), aux (the MoE blocks'
+    load-balance losses summed; 0 for a dense stack)."""
     _check_supported(cfg)
     be = resolve(backend)
     B, S = tokens.shape
@@ -287,13 +301,15 @@ def forward_hidden(params, cfg: LMConfig, tokens, positions=None, *,
     x = params["embed"][tokens.long()].to(cfg.dtype)
     remat = cfg.remat and torch.is_grad_enabled() and \
         any(t.requires_grad for _, t in leaves(params))
-    for _, _, bp in _layers(params, cfg):
-        if remat:
-            x = checkpoint(_block, bp, cfg, x, positions, be,
-                           use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = _block(bp, cfg, x, positions, be)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, j, bp in _layers(params, cfg):
+        kind = cfg.block_pattern[j]
+        if remat:
+            x, a = checkpoint(_block, bp, cfg, kind, x, positions, be,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = _block(bp, cfg, kind, x, positions, be)
+        aux = aux + a
     return _rmsnorm(x, params["ln_f"], backend=be), aux
 
 
@@ -371,6 +387,7 @@ def decode_step(params, cfg: LMConfig, tokens, kv_cache, cache_pos, *,
     x = params["embed"][tokens.long()].to(cfg.dtype)
     for c, j, bp in _layers(params, cfg):
         ck, cv = kv_cache[j]
-        x = _block(bp, cfg, x, positions, be, (ck[c], cv[c]), cache_pos)
+        x, _ = _block(bp, cfg, cfg.block_pattern[j], x, positions, be,
+                      (ck[c], cv[c]), cache_pos)
     x = _rmsnorm(x, params["ln_f"], backend=be)
     return (x[:, 0] @ params["head"]).float(), kv_cache

@@ -2,17 +2,17 @@
 
 Port of ``repro/optim/compression.py``: a gradient is quantized to int8
 with a per-tensor scale after the carried error is added, and the
-quantization error is carried to the next step.  On one device there is no
-all-reduce to shrink: ``axis_name`` (the JAX package's psum of the int8
-payload inside ``shard_map``) raises until the fleet is ported.
+quantization error is carried to the next step.  With ``axis_name`` the
+int8 payloads are summed over the mesh (the JAX package's psum inside
+``shard_map``), in lockstep form: the caller passes one gradient tree and
+one error tree a shard, and gets one of each a shard back.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.tree import tree_map
-
-FLEET_ITEM = "ROADMAP queue 1 item 12b (the fleet across cards: NCCL)"
+from repro_torch.dist.mesh import psum
 
 
 def compress_int8(x):
@@ -29,21 +29,36 @@ def decompress_int8(q, scale, dtype=torch.float32):
 
 def ef_compress_grads(grads, error_state, axis_name=None):
     """Error-feedback int8 compression of a gradient tree: returns
-    (decompressed grads in the grads' dtypes, new error state)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"ef_compress_grads over a mesh axis is not ported yet: "
-            f"{FLEET_ITEM}")
+    (decompressed grads in the grads' dtypes, new error state).
 
-    def one(g, e):
-        gf = g.float() + e
-        q, scale = compress_int8(gf)
-        deq = decompress_int8(q, scale)
-        return deq.to(g.dtype), gf - deq
+    With ``axis_name`` (a name for the mesh axis, as in JAX; one device
+    holds the whole mesh) ``grads`` and ``error_state`` are lists of
+    per-shard trees, and so are the results: shard s's gradient is the
+    sum over shards of the int8 payloads, in int32, times shard s's own
+    scale, over the shard count (JAX's arithmetic, which weighs every
+    payload by the local scale: ROADMAP queue 3).  Without it the tree is
+    one shard's: its own payload times its scale."""
+    if axis_name is None:
+        g, e = _ef_lockstep([grads], [error_state])
+        return g[0], e[0]
+    return _ef_lockstep(grads, error_state)
 
-    out = tree_map(one, grads, error_state)
-    return (tree_map(lambda t: t[0], out),
-            tree_map(lambda t: t[1], out))
+
+def _ef_lockstep(grads: list, error_state: list):
+    S = len(grads)
+
+    def one(*ge):       # a tuple: a leaf to tree_map, where a list is not
+        gs, es = ge[:S], ge[S:]
+        gfs = [g.float() + e for g, e in zip(gs, es)]
+        qs = [compress_int8(gf) for gf in gfs]
+        qsum = psum([q.int() for q, _ in qs])
+        return tuple((((qt.float() * scale) / float(S)).to(g.dtype),
+                      gf - decompress_int8(q, scale))
+                     for g, gf, (q, scale), qt in zip(gs, gfs, qs, qsum))
+
+    per = tree_map(one, *grads, *error_state)
+    return ([tree_map(lambda r: r[s][0], per) for s in range(S)],
+            [tree_map(lambda r: r[s][1], per) for s in range(S)])
 
 
 def init_error_state(grads):

@@ -194,8 +194,13 @@ def test_ef_compress_grads_matches_jax():
     jq8, js8 = jcomp.compress_int8(jnp.asarray(g["embed"]))
     assert q.dtype == torch.int8 and np.array_equal(q.numpy(),
                                                     np.asarray(jq8))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tcomp.ef_compress_grads(tg, te, axis_name="data")
+    # over a mesh of shards that hold the same gradient and error, the
+    # psum of the int8 payloads over the shard count is each payload again
+    mq, me = tcomp.ef_compress_grads([tg] * 2, [te] * 2, axis_name="data")
+    want_q, want_e = tcomp.ef_compress_grads(tg, te)
+    for s in range(2):
+        _assert_trees(mq[s], want_q, rtol=0, atol=0)
+        _assert_trees(me[s], want_e, rtol=0, atol=0)
 
 
 def test_token_pipeline_matches_jax():
