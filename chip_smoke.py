@@ -97,6 +97,10 @@ Phases, each printed on its own line:
      (after phase 7, on its doc store) scans and ``Nearest`` through 4
      coordinators, and a doc created at the probe vector answering k=1 on
      several at once; a FLEET line;
+ 6f. sampler_db — ``data/sampler.py::fanout_sample_db`` over 6e's store:
+     16 director seeds at fanouts (15, 10), 3 calls; the slot layout and
+     every sampled gid among its parent's ``get_edges`` neighbours; a
+     SAMPLER_DB line;
   7. nearest — a second store (the JAX package's hybrid vector+graph
      workload at one machine's size: 4 M vector-indexed docs) and batches of
      ``Nearest``-rooted queries in both budget modes, equal to
@@ -144,14 +148,27 @@ Phases, each printed on its own line:
      ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` kernels); the
      first step's gradients through ``ef_compress_grads(axis_name=)`` over
      4 shards (a scale each), equal to the formula bit for bit (EF_MESH);
- 9c. zoo — after phase 9b's model is freed, gcn-cora, graphsage-reddit
-     and bst FULL (float32, AdamW with f32 moments) at their shape cells:
-     ``zoo/gcn-cora/full_graph_sm`` (``cora_like(1.0)``) and
-     ``zoo/graphsage-reddit/minibatch_lg`` (a synthetic graph of the
-     fanout sample's 169,984 nodes and 168,960 edges), each first step's
-     loss and gradients on the card against the CPU, then 2 warm-up and 8
-     timed ``gnn_train_step``s; ``zoo/gcn-cora/ogb_products`` (2,449,029
-     nodes, 61,859,140 edges) timed; ``zoo/bst/check`` (n_items cut to
+ 9c. zoo — after phase 9b's model is freed, gcn-cora, graphsage-reddit,
+     meshgraphnet, nequip and bst FULL (float32, AdamW with f32 moments) at
+     their shape cells: ``zoo/gcn-cora/full_graph_sm`` (``cora_like(1.0)``),
+     then the minibatch_lg base graph made on the card (232,965 nodes,
+     114,615,892 edges, 602 features, ``reddit_like``'s law), its CSR by
+     ``data/sampler.py::csr_from_coo`` and fanout samples of 1,024 seeds at
+     (15, 10) by ``build_sampled_batch`` (169,984 node and 168,960 edge
+     slots; each checked: the slot layout, -1 exactly under a -1 or
+     neighbourless parent, every sampled edge an edge of the base graph; a
+     SAMPLER line with the CSR build s and ms a sample):
+     ``zoo/graphsage-reddit/minibatch_lg`` and
+     ``zoo/meshgraphnet/minibatch_lg`` (15 blocks, d_in 602, a fresh
+     sample with positions by gid and (N, 3) targets), and
+     ``zoo/nequip/molecule`` (``molecule_batch(128, 30, 64)``), each first
+     step's loss and gradients on the card against the CPU, then 2 warm-up
+     and 8 timed ``gnn_train_step``s; NequIP's forces on the card against
+     the CPU, its energy invariant and forces equivariant under a seeded
+     rotation plus translation (NEQUIP_CHECK); ``zoo/gcn-cora/ogb_products``
+     (2,449,029 nodes, 61,859,140 edges) timed (MGN and NequIP do not run
+     there: MGN's concatenated edge input alone, 61,859,140 x 384 x 4 B,
+     is 95 GB); ``zoo/bst/check`` (n_items cut to
      1,000,000: logits and gradients against the CPU),
      ``zoo/bst/train_batch`` (10^8 items, batch 65,536) timed, and
      ``zoo/bst/serve_p99`` / ``serve_bulk``; then the zoo path: the two
@@ -336,25 +353,44 @@ REMAT_TOL = 1e-5
 # least cosine 0.99961.  One lost kv-head group of wk's 24 x 8 (of equal
 # norm) would read sqrt(1 - 1/192) = 0.9974, one lost layer 0.979
 TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_MIN_COSINE = 1e-4, 3e-3, 0.999
-# phase 9c, the zoo: gcn-cora, graphsage-reddit and bst FULL
-# (src/repro/configs/{gcn_cora,graphsage_reddit,bst}.py) at their shape
-# cells (src/repro/configs/registry.py:106-131); None takes the cell's own
-# geometry or batch.  ell_k: GraphSAGE's first-hop fanout (arXiv:1706.02216)
+# phase 9c, the zoo: gcn-cora, graphsage-reddit, meshgraphnet, nequip and
+# bst FULL (src/repro/configs/{gcn_cora,graphsage_reddit,meshgraphnet,
+# nequip,bst}.py) at their shape cells (src/repro/configs/registry.py:
+# 106-131); None takes the cell's own geometry or batch.  ell_k:
+# GraphSAGE's first-hop fanout (arXiv:1706.02216)
+# sample_base None: the minibatch_lg cell's own base graph (232,965 nodes,
+# 114,615,892 edges); sample_calls: timed fanout samples; sampler_db_*:
+# phase_sampler_db's director seeds and calls
 ZOO_FULL = dict(cora_scale=1.0, reduced_geometry=False, ogb=None,
                 bst_items=None, bst_batch=None, serve={}, serve_calls=8,
                 check_items=1_000_000, check_batch=4_096, ell_k=25,
-                warm_steps=2, timed_steps=8)
+                warm_steps=2, timed_steps=8, sample_base=None,
+                sample_calls=8, sampler_db_seeds=16, sampler_db_calls=3)
 ZOO_REHEARSE = dict(cora_scale=0.1, reduced_geometry=True,
                     ogb=(3_000, 12_000, 100, 1), bst_items=10_000,
                     bst_batch=256, serve=dict(serve_p99=16, serve_bulk=512),
                     serve_calls=2, check_items=1_000, check_batch=64,
-                    ell_k=25, warm_steps=1, timed_steps=2)
+                    ell_k=25, warm_steps=1, timed_steps=2,
+                    sample_base=(2_000, 40_000), sample_calls=2,
+                    sampler_db_seeds=4, sampler_db_calls=1)
 # the zoo's card-against-CPU checks, float32 throughout, max |a - b| over
 # max |b|: the card adds the edges' messages with atomics and cuBLAS sums
 # its f32 products in other orders than the CPU (each op ~1e-7 relative,
 # sums over thousands of edges and nodes reach ~1e-6); the loss is one
 # mean, each gradient leaf a sum over the whole graph or batch
 ZOO_LOSS_TOL, ZOO_GRAD_TOL = 1e-5, 1e-4
+# a cell's own gradient tolerance, where its depth carries that rounding
+# further: meshgraphnet's 15 residual blocks (30 MLPs, each ending in a
+# LayerNorm whose backward divides by the row's spread) carry the atomic
+# sums' ~1e-7 back to the encoder; on the H100 at minibatch_lg the loss
+# was equal and the worst leaf (enc_node.w.0, the farthest from the loss)
+# read 1.74e-4, 5.59e-4, 5.03e-4 and 5.27e-4 in four runs (median leaf
+# 8e-6, 4-5 of 262 leaves past 1e-4): the run-to-run spread alone is 3x
+ZOO_GRAD_TOL_CELL = {"zoo/meshgraphnet/minibatch_lg": 3e-3}
+# NequIP under a rotation plus a translation, on the card: each molecule's
+# energy within 1e-3 of max(1, |E|), the forces within 6e-3 absolute
+# (tests/test_models.py:116-148)
+NEQUIP_TOL = dict(energy=1e-3, forces=6e-3)
 # segment_spmm (every in-neighbour, norm 1/deg) against common.spmm's mean:
 # f32 sums of the same terms in another order, a multiply by 1/deg against
 # a divide by deg
@@ -4499,11 +4535,14 @@ def _lm_tokens(cfg, dev, batch: int, seq: int, seed: int):
 
 
 def _rel_err(a, b) -> float:
-    """max |a - b| / max |b| (NaN if either has a non-finite value)."""
+    """max |a - b| / max |b|, or max |a - b| where b is all zeros (a
+    gradient leaf the loss does not reach); NaN if either has a non-finite
+    value."""
     import torch
     if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
         return float("nan")
-    return float((a - b).abs().max() / b.abs().max())
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    return float((a - b).abs().max()) / (scale if scale > 0 else 1.0)
 
 
 def _same_argmax(a, b, tol_abs: float, what: str) -> int:
@@ -5584,15 +5623,16 @@ def _zoo_check(dev, cell, mod, cfg, params_cpu, args_cpu, logits=None):
     loss_err = abs(ld - lc) / abs(lc)
     errs = {".".join(map(str, k)): _rel_err(gd[k].cpu(), gc[k]) for k in gc}
     out_err = _rel_err(od.cpu(), oc) if logits else None
+    grad_tol = ZOO_GRAD_TOL_CELL.get(cell, ZOO_GRAD_TOL)
     check(loss_err <= ZOO_LOSS_TOL
-          and all(e <= ZOO_GRAD_TOL for e in errs.values())
+          and all(e <= grad_tol for e in errs.values())
           and (out_err is None or out_err <= ZOO_LOSS_TOL),
           f"{cell}: card vs CPU loss {ld} vs {lc}, logits {out_err}, "
           f"gradients {errs}")
     say("ZOO_CHECK", cell=cell, config=cfg.name, loss_cpu=lc, loss_dev=ld,
         loss_rel_err=loss_err, logits_rel_err=out_err,
         grad_rel_err_max=max(errs.values()), grad_rel_err=errs,
-        tolerance=dict(loss=ZOO_LOSS_TOL, grads=ZOO_GRAD_TOL),
+        tolerance=dict(loss=ZOO_LOSS_TOL, grads=grad_tol),
         seconds={k: v[3] for k, v in runs.items()})
     return params
 
@@ -5629,12 +5669,13 @@ def _zoo_timed(dev, cell, step, sizes, **line):
 
 
 def _gnn_cell(dev, arch_conf, shape_id, sizes, seed, *, batch_cpu=None,
-              geometry=None, reduced=()):
+              geometry=None, reduced=(), **line):
     """One GNN cell at the config's full widths, ``d_in`` the features of
-    its graph (as ``steps.gnn_cell_config`` sets it): ``batch_cpu``, whose
-    first step on the card is checked against the CPU, or a synthetic graph
-    of ``geometry`` (the cell's own by default) made on the card; then the
-    timed AdamW steps.  Returns (params, batch)."""
+    its graph (as ``steps.gnn_cell_config`` sets it; NequIP has none):
+    ``batch_cpu``, whose first step on the card is checked against the
+    CPU, or a synthetic graph of ``geometry`` (the cell's own by default)
+    made on the card; then the timed AdamW steps (``line``: more ZOO_TRAIN
+    fields).  Returns (params, batch)."""
     import dataclasses
     import torch
     from repro_torch.data.graphs import synthetic_graph_batch
@@ -5647,7 +5688,8 @@ def _gnn_cell(dev, arch_conf, shape_id, sizes, seed, *, batch_cpu=None,
     else:
         N, E, dF, _ = geometry or steps.gnn_geometry(
             spec.cell(shape_id), sizes["reduced_geometry"])
-    cfg = dataclasses.replace(spec.model, d_in=dF)
+    cfg = (dataclasses.replace(spec.model, d_in=dF)
+           if hasattr(spec.model, "d_in") else spec.model)
     mod = steps.gnn_module(cfg)
     cell = f"zoo/{spec.arch_id}/{shape_id}"
     gen = torch.Generator(device="cpu" if batch_cpu is not None else dev)
@@ -5674,7 +5716,7 @@ def _gnn_cell(dev, arch_conf, shape_id, sizes, seed, *, batch_cpu=None,
         return m
     _zoo_timed(dev, cell, step, sizes, config=cfg.name, nodes=N, edges=E,
                d_feat=dF, layers=cfg.n_layers, reduced=list(reduced),
-               source=spec.source, edges_per_s=lambda p50: E / p50)
+               source=spec.source, edges_per_s=lambda p50: E / p50, **line)
     del state
     return params, batch
 
@@ -5863,29 +5905,313 @@ def _zoo_spmm_cross_check(dev, batch):
         d=batch.node_feat.shape[1], rel_err=err, tolerance=ZOO_SPMM_TOL)
 
 
+def _sample_geometry(cell, sizes) -> tuple:
+    """(base nodes, base edges, features, seeds, fanouts) of a sampled
+    cell: its own, or ``sizes["sample_base"]`` with ``gnn_geometry``'s
+    reduced cut (8 seeds, fanouts (3, 2), 16 features)."""
+    g = cell.geometry
+    if sizes["sample_base"] is None:
+        return (g["n_base_nodes"], g["n_base_edges"], g["d_feat"],
+                g["batch_nodes"], tuple(g["fanout"]))
+    return (*sizes["sample_base"], 16, 8, (3, 2))
+
+
+def _reddit_base(dev, n: int, e: int, d: int, seed: int):
+    """The minibatch_lg cell's base graph made on the device by
+    ``data/graphs.py::reddit_like``'s law (``synthetic_graph_batch``: e/2
+    sources by Zipf weights 1/k^0.8 and uniform destinations, both
+    directions; N(0, 1) features; 41 uniform labels) from a
+    ``torch.Generator`` (other numbers), and N(0, 1) positions a node
+    (MGN's edge inputs).  Returns (src, dst, features, labels,
+    positions)."""
+    import torch
+    check(e % 2 == 0, f"an odd edge count {e}")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cdf = torch.cumsum(torch.arange(1, n + 1, dtype=torch.float64,
+                                    device=dev).pow(-0.8), 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand(e // 2, generator=g, dtype=torch.float64, device=dev)
+    src = torch.searchsorted(cdf, u, right=True).clamp_(max=n - 1).int()
+    del u, cdf
+    dst = torch.randint(0, n, (e // 2,), generator=g, device=dev,
+                        dtype=torch.int32)
+    src, dst = torch.cat([src, dst]), torch.cat([dst, src])
+    feat = torch.randn((n, d), generator=g, device=dev)
+    labels = torch.randint(0, 41, (n,), generator=g, device=dev,
+                           dtype=torch.int32)
+    pos = torch.randn((n, 3), generator=g, device=dev)
+    return src, dst, feat, labels, pos
+
+
+def _check_sample(base, sample, fanouts, what) -> None:
+    """One fanout sample (seeds, its GraphBatch, its gids) against its base
+    graph: on a host copy, the slot layout exactly (seeds first; hop k's
+    edge i from slot base_next + i to its parent's slot), and a slot -1
+    exactly where its parent is -1 or has no neighbours; on the device,
+    every sampled (parent, child) a (src, dst) edge of the base graph
+    (``base["keys"]``: src * n + dst sorted), so the child lies in its
+    parent's CSR span (the CSR's own keys equal these: ``_sampler_base``),
+    and the features, labels and mask gathered by gid."""
+    import numpy as np
+    import torch
+    seeds, batch, gids = sample
+    es, ed = batch.edge_src, batch.edge_dst
+    g, sh, dh = (t.cpu().numpy() for t in (gids, es, ed))
+    B = seeds.shape[0]
+    check(np.array_equal(g[:B], seeds.cpu().numpy()), f"{what}: seeds")
+    deg = np.diff(base["indptr_h"])
+    prev, nxt, nk, eo = 0, B, B, 0
+    for f in fanouts:
+        parents = g[prev:prev + nk]
+        has = (parents >= 0) & (deg[np.maximum(parents, 0)] > 0)
+        kids = g[nxt:nxt + nk * f].reshape(nk, f)
+        check(bool(((kids >= 0) == has[:, None]).all()),
+              f"{what}: a slot is -1 where its parent has neighbours, or "
+              f"the reverse")
+        want_s = np.where(np.repeat(has, f), nxt + np.arange(nk * f), -1)
+        want_d = prev + np.repeat(np.arange(nk), f)
+        check(np.array_equal(sh[eo:eo + nk * f], want_s)
+              and np.array_equal(dh[eo:eo + nk * f], want_d),
+              f"{what}: the hop's slot layout")
+        eo, prev, nxt, nk = eo + nk * f, nxt, nxt + nk * f, nk * f
+    check(eo == sh.shape[0] and nxt == g.shape[0], f"{what}: slot counts")
+    v = es >= 0
+    q = gids[ed[v].long()].long() * base["n"] + gids[es[v].long()].long()
+    keys = base["keys"]
+    pos = torch.searchsorted(keys, q).clamp_(max=keys.numel() - 1)
+    check(bool((keys[pos] == q).all()),
+          f"{what}: a sampled child is not its parent's neighbour")
+    ok = gids >= 0
+    rows = torch.where(ok, gids, 0).long()
+    check(torch.equal(batch.node_feat, base["feat"][rows] * ok[:, None])
+          and torch.equal(batch.labels[:B], base["labels"][seeds.long()])
+          and bool((batch.labels[B:] == -1).all())
+          and int(batch.train_mask.sum()) == B
+          and bool(batch.train_mask[:B].all()),
+          f"{what}: features, labels or mask not gathered by gid")
+
+
+def _sampler_base(dev, sizes):
+    """The minibatch_lg base graph on the card (``_reddit_base``), its CSR
+    by ``csr_from_coo`` (timed) checked against the edges, and
+    ``sample(seed)``: ``batch_nodes`` seeds drawn from a generator of that
+    seed, then ``build_sampled_batch`` at the cell's fanouts from the same
+    generator, and its gids by ``fanout_sample`` from a copy of the
+    generator's state (the same draws, so the same edges, checked).  Takes
+    ``sample_calls`` timed samples after a first one, each checked
+    (``_check_sample``), and prints SAMPLER.  Returns (sample, base)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import graphsage_reddit
+    from repro_torch.data.sampler import (build_sampled_batch, csr_from_coo,
+                                          fanout_sample)
+    n, e, d, B, fanouts = _sample_geometry(
+        graphsage_reddit.SPEC.cell("minibatch_lg"), sizes)
+    t0 = time.perf_counter()
+    src, dst, feat, labels, pos = _reddit_base(dev, n, e, d, seed=36)
+    keys = torch.sort(src.long() * n + dst.long()).values
+    _sync(dev)
+    base_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    indptr, indices = csr_from_coo(n, src, dst)
+    _sync(dev)
+    csr_s = time.perf_counter() - t0
+    del src, dst
+    rows = torch.repeat_interleave(torch.arange(n, device=dev),
+                                   torch.diff(indptr.long()))
+    check(int(indptr[-1]) == e and indices.shape[0] == e
+          and torch.equal(torch.sort(rows * n + indices.long()).values,
+                          keys), "csr_from_coo: the CSR is not the edges")
+    del rows
+    base = dict(n=n, keys=keys, feat=feat, labels=labels, pos=pos,
+                indptr_h=indptr.cpu().numpy())
+
+    def sample(seed, timed=None):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        seeds = torch.randperm(n, generator=gen, device=dev)[:B].int()
+        state = gen.get_state()
+        _sync(dev)
+        t0 = time.perf_counter()
+        batch = build_sampled_batch(feat, labels, indptr, indices, seeds,
+                                    gen, fanouts=fanouts)
+        _sync(dev)
+        if timed is not None:
+            timed.append(time.perf_counter() - t0)
+        gen.set_state(state)
+        gids, es, ed = fanout_sample(indptr, indices, seeds, gen,
+                                     fanouts=fanouts)
+        check(torch.equal(es, batch.edge_src)
+              and torch.equal(ed, batch.edge_dst),
+              f"sample {seed}: fanout_sample's edges differ from the batch's")
+        _check_sample(base, (seeds, batch, gids), fanouts, f"sample {seed}")
+        return seeds, batch, gids
+
+    secs, valid = [], []
+    for i in range(1 + sizes["sample_calls"]):
+        _, batch, _ = sample(100 + i, secs if i else None)
+        valid.append(int((batch.edge_src >= 0).sum()))
+    say("SAMPLER", cell="zoo/graphsage-reddit/minibatch_lg", nodes=n,
+        edges=e, d_feat=d, seeds=B, fanouts=list(fanouts),
+        node_slots=int(batch.node_feat.shape[0]),
+        edge_slots=int(batch.edge_src.shape[0]), valid_edge_slots=valid,
+        base_build_s=base_s, csr_build_s=csr_s,
+        sample_p50_ms=float(np.median(secs)) * 1e3,
+        sample_ms=[x * 1e3 for x in secs], samples_checked=len(valid))
+    return sample, base
+
+
+def _sampled_cells(dev, sizes):
+    """graphsage-reddit and meshgraphnet at ``minibatch_lg`` on fanout
+    samples of the base graph (``_sampler_base``), each first step checked
+    against the CPU on its batch copied there, then timed.  MGN's sample
+    is a fresh one, with positions gathered by gid (0 at a -1 slot) and
+    (N, 3) N(0, 1) targets."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import graphsage_reddit, meshgraphnet
+    sample, base = _sampler_base(dev, sizes)
+    _, batch, _ = sample(41)
+    _gnn_cell(dev, graphsage_reddit, "minibatch_lg", sizes, 32,
+              batch_cpu=batch.to("cpu"))
+    del batch
+    _, batch, gids = sample(42)
+    ok = gids >= 0
+    gen = torch.Generator(device=dev).manual_seed(43)
+    batch = dataclasses.replace(
+        batch, positions=base["pos"][torch.where(ok, gids, 0).long()]
+        * ok[:, None],
+        labels=torch.randn((gids.shape[0], 3), generator=gen, device=dev))
+    del base, sample
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    _gnn_cell(dev, meshgraphnet, "minibatch_lg", sizes, 34,
+              batch_cpu=batch.to("cpu"))
+
+
+def _rotation(seed: int):
+    """A seeded proper rotation (3, 3) float32 numpy array, as
+    ``tests/test_models.py::test_nequip_invariance_and_force_equivariance``
+    draws it."""
+    import numpy as np
+    Q, R = np.linalg.qr(np.random.default_rng(seed).normal(size=(3, 3)))
+    Q *= np.sign(np.diag(R))
+    if np.linalg.det(Q) < 0:
+        Q[:, 0] *= -1
+    return Q.astype(np.float32)
+
+
+def _nequip_cell(dev, sizes):
+    """nequip FULL at ``molecule`` (``molecule_batch`` of the cell's
+    geometry): ZOO_CHECK and the timed steps (``_gnn_cell``), then with
+    the trained params the forces on the card against the CPU, and on the
+    card each molecule's energy invariant and the forces equivariant under
+    a seeded rotation plus a translation, within the JAX test's
+    tolerances (NEQUIP_TOL)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import nequip as nequip_conf
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.graphs import molecule_batch
+    from repro_torch.launch.steps import gnn_geometry
+    from repro_torch.models.gnn import nequip
+    g = nequip_conf.SPEC.cell("molecule").geometry
+    bt = g["batch"] if not sizes["reduced_geometry"] else \
+        gnn_geometry(nequip_conf.SPEC.cell("molecule"), True)[3]
+    cfg = nequip_conf.FULL
+    b_cpu = molecule_batch(bt, g["n_nodes"], g["n_edges"],
+                           n_species=cfg.n_species, seed=35, device="cpu")
+    params, batch = _gnn_cell(dev, nequip_conf, "molecule", sizes, 35,
+                              batch_cpu=b_cpu,
+                              molecules_per_s=lambda p50: bt / p50)
+    t0 = time.perf_counter()
+    f_dev = nequip.forces(params, cfg, batch)
+    f_cpu = nequip.forces(tree_map(lambda t: t.cpu(), params), cfg, b_cpu)
+    f_err = _rel_err(f_dev.cpu(), f_cpu)
+    Qt = torch.from_numpy(_rotation(7).T.copy()).to(dev)
+    moved = dataclasses.replace(batch, positions=batch.positions @ Qt
+                                + torch.tensor([1.0, 2.0, 3.0], device=dev))
+    with torch.no_grad():
+        e0 = nequip.forward(params, cfg, batch)
+        e1 = nequip.forward(params, cfg, moved)
+    e_err = float(((e1 - e0).abs() / torch.clamp(e0.abs(), min=1.0)).max())
+    rot_err = float((nequip.forces(params, cfg, moved) - f_dev @ Qt).abs()
+                    .max())
+    check(f_err <= ZOO_GRAD_TOL and e_err < NEQUIP_TOL["energy"]
+          and rot_err < NEQUIP_TOL["forces"],
+          f"zoo/nequip/molecule: forces card vs CPU {f_err}, rotated "
+          f"energy {e_err}, rotated forces {rot_err}")
+    say("NEQUIP_CHECK", cell="zoo/nequip/molecule", molecules=bt,
+        atoms=int(batch.positions.shape[0]),
+        self_loops=int((batch.edge_src == batch.edge_dst).sum()),
+        forces_max=float(f_dev.abs().max()), forces_rel_err=f_err,
+        energy_rot_err=e_err, forces_rot_err=rot_err,
+        tolerance=dict(forces_card_vs_cpu=ZOO_GRAD_TOL,
+                       rotated=NEQUIP_TOL),
+        seconds=time.perf_counter() - t0)
+
+
+def phase_sampler_db(kg, sizes):
+    """``fanout_sample_db`` over phase 5's store (after 6e's writes):
+    ``sampler_db_seeds`` directors with 15-1,024 films at load (under
+    ``get_edges``' 4,096 cap, which the sampler keeps) at the
+    minibatch_lg fanouts; the slot layout, and every sampled gid among its
+    parent's ``get_edges`` neighbours.  Prints SAMPLER_DB."""
+    import numpy as np
+    from repro_torch.configs import graphsage_reddit
+    from repro_torch.data.sampler import fanout_sample_db
+    fanouts = tuple(graphsage_reddit.SPEC.cell("minibatch_lg")
+                    .geometry["fanout"])
+    e = kg.edges
+    m = e["etype"] == kg.db.et("film.director").type_id
+    cnt = np.bincount(e["src"][m], minlength=kg.n_directors)
+    pick = np.flatnonzero((cnt >= 15) & (cnt <= 1024))
+    n = sizes["sampler_db_seeds"]
+    check(len(pick) >= n, "sampler_db: too few directors")
+    seeds = np.random.default_rng(44).choice(pick, n, replace=False)
+    secs = []
+    for i in range(sizes["sampler_db_calls"]):
+        t0 = time.perf_counter()
+        gids, es, ed = fanout_sample_db(kg.db, seeds, fanouts=fanouts,
+                                        seed=i)
+        secs.append(time.perf_counter() - t0)
+        check(gids.shape[0] == n * (1 + fanouts[0] + fanouts[0] * fanouts[1])
+              and es.shape == ed.shape
+              and es.shape[0] == gids.shape[0] - n
+              and np.array_equal(gids[:n], seeds), "sampler_db: layout")
+        nbrs = {}
+        for s_, d_ in zip(es, ed):
+            parent = int(gids[d_])
+            if s_ < 0:
+                check(parent < 0 or not nbrs.setdefault(
+                    parent, {x for x, _ in kg.db.get_edges(parent)}),
+                    "sampler_db: -1 under a parent with neighbours")
+                continue
+            if parent not in nbrs:
+                nbrs[parent] = {x for x, _ in kg.db.get_edges(parent)}
+            check(int(gids[s_]) in nbrs[parent],
+                  f"sampler_db: {int(gids[s_])} is not a neighbour of "
+                  f"{parent}")
+    say("SAMPLER_DB", seeds=n, fanouts=list(fanouts),
+        node_slots=int(gids.shape[0]), valid_edge_slots=int((es >= 0).sum()),
+        parents_checked=len(nbrs), ms_per_call=[x * 1e3 for x in secs],
+        p50_ms=float(np.median(secs)) * 1e3)
+
+
 def phase_zoo(dev, sizes, launches, rec):
     """Phase 9c: gcn-cora, graphsage-reddit and bst at full width (see the
     docstring), then the zoo path's two kernels."""
     import torch
-    from repro_torch.configs import gcn_cora, graphsage_reddit
+    from repro_torch.configs import gcn_cora
     from repro_torch.data.graphs import cora_like
     t_phase = time.perf_counter()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         held = torch.cuda.memory_allocated()
         check(held < 8 << 30, f"zoo: {held} bytes still held")
-    from repro_torch.data.graphs import synthetic_graph_batch
-    from repro_torch.launch.steps import gnn_geometry
     cora = cora_like(sizes["cora_scale"], device="cpu")
     _gnn_cell(dev, gcn_cora, "full_graph_sm", sizes, 31, batch_cpu=cora)
-    N, E, dF, _ = gnn_geometry(graphsage_reddit.SPEC.cell("minibatch_lg"),
-                               sizes["reduced_geometry"])
-    _gnn_cell(dev, graphsage_reddit, "minibatch_lg", sizes, 32,
-              batch_cpu=synthetic_graph_batch(
-                  N, E, dF, n_classes=graphsage_reddit.FULL.n_classes,
-                  seed=32, device="cpu"),
-              reduced=("the fanout sample (data/sampler.py, not ported) "
-                       "-> synthetic_graph_batch of its nodes and edges",))
+    _sampled_cells(dev, sizes)
+    _nequip_cell(dev, sizes)
     p, batch = _gnn_cell(dev, gcn_cora, "ogb_products", sizes, 33,
                          geometry=sizes["ogb"])
     ids, deg = _ell(batch, batch.node_feat.shape[0], sizes["ell_k"])
@@ -7060,6 +7386,7 @@ def main(argv=None) -> int:
         phase_maintenance(kg, dev, MAINT_REHEARSE, state, launches, load_s)
         phase_serving(kg, dev, SERVE_REHEARSE, state, launches)
         fleet = phase_fleet(kg, dev, FLEET_REHEARSE, state, launches)
+        phase_sampler_db(kg, ZOO_REHEARSE)
         docs = phase_nearest(dev, NEAREST_REHEARSE, 1, launches, caps)
         phase_fleet_nearest(docs, dev, NEAREST_REHEARSE, launches, caps,
                             fleet)
@@ -7097,6 +7424,7 @@ def main(argv=None) -> int:
         phase_maintenance(kg, dev, MAINT_FULL, state, launches, load_s, rec)
         phase_serving(kg, dev, SERVE_FULL, state, launches, rec)
         fleet = phase_fleet(kg, dev, FLEET_FULL, state, launches, rec)
+        phase_sampler_db(kg, ZOO_FULL)
         del kg, state
         torch.cuda.empty_cache()
         docs = phase_nearest(dev, NEAREST_FULL, BATCHES, launches)

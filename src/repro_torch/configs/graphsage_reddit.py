@@ -1,8 +1,8 @@
 """graphsage-reddit [arXiv:1706.02216; paper]
 
 Port of ``repro/configs/graphsage_reddit.py``: 2 layers, d_hidden 128,
-mean aggregator, fanout 25-10.  The minibatch cell's fanout sampler
-(``data/sampler.py``) is ROADMAP queue 1 item 15d.
+mean aggregator.  The minibatch cell samples fanouts (15, 10) with the
+real fanout sampler (``data/sampler.py``), a bounded A1 traversal.
 """
 import torch
 
@@ -20,4 +20,4 @@ SPEC = register(ArchSpec(
     shapes=gnn_shapes(d_feat_sm=1433, n_classes=41),
     source="arXiv:1706.02216; verified-tier: paper",
     note="fanout sampling is an A1 multi-hop traversal with per-hop "
-         "capacity (data/sampler.py, still to port)."))
+         "capacity; sampler: data/sampler.py."))

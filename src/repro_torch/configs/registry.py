@@ -3,9 +3,7 @@
 Port of ``repro/configs/registry.py``: ``ShapeCell``, ``ArchSpec``,
 ``register`` and the lookup (``get``, ``all_archs``, ``all_cells``), and
 the LM, GNN and recsys shape templates.  The lookup imports every config
-module the port has (:data:`CONFIG_MODULES`); the JAX registry's
-``meshgraphnet`` and ``nequip`` are not among them until ROADMAP queue 1
-item 15d ports their models.
+module (:data:`CONFIG_MODULES`), as the JAX registry does.
 """
 from __future__ import annotations
 
@@ -64,8 +62,8 @@ def all_cells() -> list[tuple[str, str]]:
 
 # the config modules of repro_torch.configs, in the JAX registry's order
 CONFIG_MODULES = ("qwen3_moe_235b", "llama4_maverick_400b", "llama3_405b",
-                  "h2o_danube_3_4b", "qwen15_32b", "gcn_cora",
-                  "graphsage_reddit", "bst", "a1_kg")
+                  "h2o_danube_3_4b", "qwen15_32b", "nequip", "gcn_cora",
+                  "meshgraphnet", "graphsage_reddit", "bst", "a1_kg")
 _LOADED = False
 
 

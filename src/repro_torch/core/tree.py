@@ -80,12 +80,14 @@ def value_and_grad(loss_fn, params, *args, **kwargs):
     ((loss, metrics), grads) of ``loss_fn(params, *args, **kwargs)``,
     grads a tree laid out like ``params``.  The gradient is taken with
     respect to detached aliases of the leaves (no copy, and the caller's
-    tensors are not marked); the loss and metrics come back detached."""
+    tensors are not marked); the loss and metrics come back detached.  A
+    leaf the loss does not reach (NequIP's last-layer l > 0 mixes) gets a
+    zero gradient, as in JAX."""
     alias = tree_map(lambda t: t.detach().requires_grad_(), params)
     paths, flat = zip(*leaves(alias))
     with torch.enable_grad():
         loss, metrics = loss_fn(alias, *args, **kwargs)
-        gs = torch.autograd.grad(loss, flat)
+        gs = torch.autograd.grad(loss, flat, materialize_grads=True)
     grads = tree_map(lambda t: None, params)
     for path, g in zip(paths, gs):
         set_path(grads, path, g)

@@ -20,7 +20,7 @@ from repro_torch.core.precision import f32_accumulation
 from repro_torch.core.tree import leaves, set_path, tree_map, value_and_grad
 from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
-from repro_torch.models.gnn import gcn, sage
+from repro_torch.models.gnn import gcn, meshgraphnet, nequip, sage
 from repro_torch.optim.optimizers import (AdafactorConfig, AdamWConfig,
                                           opt_update)
 
@@ -87,9 +87,6 @@ def lm_train_step(params, opt_state, tokens, targets, cfg, ocfg, *,
 # GNN and recsys cells
 # ---------------------------------------------------------------------------
 
-GNN_ITEM = "ROADMAP queue 1 item 15d (meshgraphnet, nequip and irreps)"
-
-
 def _update(params, opt_state, loss, grads, ocfg):
     """``opt_update`` unless the loss is not finite (the trainer's circuit
     breaker: the update happens in place, so it is decided here)."""
@@ -121,18 +118,22 @@ def gnn_geometry(cell, reduced: bool = False) -> tuple:
     return g["n_nodes"], g["n_edges"], g["d_feat"], 1
 
 
+GNN_MODULES = {gcn.GCNConfig: gcn, sage.SageConfig: sage,
+               meshgraphnet.MGNConfig: meshgraphnet,
+               nequip.NequIPConfig: nequip}
+
+
 def gnn_module(cfg):
-    """The model module of a GNN config (gcn or sage)."""
-    mods = {gcn.GCNConfig: gcn, sage.SageConfig: sage}
-    if type(cfg) not in mods:
-        raise NotImplementedError(
-            f"{type(cfg).__name__} is not ported yet: {GNN_ITEM}")
-    return mods[type(cfg)]
+    """The model module of a GNN config."""
+    return GNN_MODULES[type(cfg)]
 
 
 def gnn_cell_config(base, cell, reduced: bool = False):
     """The config a GNN cell trains: ``base`` with ``d_in`` the cell's
-    feature width."""
+    feature width (GCN, SAGE, MGN), or ``base`` itself (NequIP, whose input
+    is the species column)."""
+    if isinstance(base, nequip.NequIPConfig):
+        return base
     gnn_module(base)
     return dataclasses.replace(base, d_in=gnn_geometry(cell, reduced)[2])
 

@@ -1,8 +1,8 @@
 """GraphSAGE (arXiv:1706.02216): mean aggregator.
 
 Port of ``repro/models/gnn/sage.py``.  graphsage-reddit assigned config: 2
-layers, d_hidden 128, fanout 25-10 (the sampler, ``data/sampler.py``, is
-ROADMAP queue 1 item 15d).  Params: ``{"w_self", "w_nbr", "b"}``, a list a
+layers, d_hidden 128; its minibatch cell samples fanouts (15, 10) with
+``data/sampler.py``.  Params: ``{"w_self", "w_nbr", "b"}``, a list a
 layer each, laid out like the JAX pytree.
 """
 from __future__ import annotations

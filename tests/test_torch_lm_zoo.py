@@ -33,9 +33,8 @@ from test_torch_store_index_edges import one_torch_thread  # noqa: F401
 
 FIXTURE = Path(__file__).parent / "fixtures" / "torch_lm_zoo"
 LOGIT_TOL = dict(rtol=1e-5, atol=1e-5)
-# the JAX registry's archs whose models are not ported (ROADMAP queue 1
-# item 15d)
-REMAINDER = {"meshgraphnet", "nequip"}
+# the JAX registry's archs whose models are not ported: none are left
+REMAINDER = set()
 
 
 @pytest.fixture(scope="module")
@@ -61,8 +60,11 @@ def test_registry_lists_match_jax(jax_side):
     assert treg.all_archs() == sorted(archs)
     want = [tuple(c) for c in meta["cells"] if c[0] not in REMAINDER]
     assert treg.all_cells() == want
+    for arch in ("meshgraphnet", "nequip"):     # the last two ported
+        assert treg.get(arch).arch_id == arch
+        assert treg.get(arch).family == "gnn"
     with pytest.raises(KeyError):
-        treg.get("meshgraphnet")
+        treg.get("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", sorted(set(jreg.all_archs()) - REMAINDER))

@@ -23,6 +23,7 @@ from repro.launch.mesh import make_test_mesh
 from repro.models import embedding as jemb
 from repro.models import recsys as JR
 from repro.optim import optimizers as jopt
+from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs import bst
 from repro_torch.core.tree import leaves, value_and_grad
 from repro_torch.data import recsys as tdata
@@ -152,13 +153,19 @@ def test_recsys_steps_match_the_jax_cells():
         assert (d > 1e-6).sum() <= max(1, d.size // 10_000)
 
 
-def test_run_training_bst_and_what_it_refuses(capsys):
+def test_run_training_bst_and_what_it_refuses(capsys, tmp_path):
     out = ttrain.run_training("bst", steps=3, log_every=1, device="cpu")
     assert set(out) == {"loss", "gnorm"}
     assert all(np.isfinite(v) for v in out.values())
     assert capsys.readouterr().out.count("loss=") == 3
-    for arch in ("meshgraphnet", "nequip"):
-        with pytest.raises(NotImplementedError, match="15d"):
+    for arch in ("no-such-arch", "a1-kg"):       # a1-kg is a graph store
+        with pytest.raises(KeyError):
             ttrain.run_training(arch, steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="15d"):
-        ttrain.run_training("bst", steps=1, device="cpu", ckpt_dir="ckpt")
+    # checkpoints are ported: a step's save, then a resume past it
+    ttrain.run_training("bst", steps=1, device="cpu", ckpt_dir=str(tmp_path),
+                        ckpt_every=1)
+    assert CheckpointManager(str(tmp_path)).steps() == [1]
+    ttrain.run_training("bst", steps=2, device="cpu", ckpt_dir=str(tmp_path),
+                        ckpt_every=1)
+    assert "resumed from step 1" in capsys.readouterr().out
+    assert CheckpointManager(str(tmp_path)).steps() == [1, 2]

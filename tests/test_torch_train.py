@@ -211,17 +211,19 @@ def test_non_finite_loss_updates_nothing():
         assert torch.equal(a, b)
 
 
-def test_run_training_lm_and_what_it_refuses(capsys):
+def test_run_training_lm_and_what_it_refuses(capsys, tmp_path):
     out = ttrain.run_training("h2o-danube-3-4b", steps=3, log_every=1,
                               device="cpu")
     assert set(out) == {"loss", "gnorm"}
     assert all(np.isfinite(v) for v in out.values())
     assert capsys.readouterr().out.count("loss=") == 3
-    with pytest.raises(NotImplementedError, match="15d"):
-        ttrain.run_training("meshgraphnet", steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="15d"):
-        ttrain.run_training("h2o-danube-3-4b", steps=1, device="cpu",
-                            ckpt_dir="ckpt")
+    # every arch trains now, and checkpoints: a resume past the last save
+    # runs no step when the run has reached its end
+    ttrain.run_training("h2o-danube-3-4b", steps=1, device="cpu",
+                        ckpt_dir=str(tmp_path), ckpt_every=1)
+    assert ttrain.run_training("h2o-danube-3-4b", steps=1, device="cpu",
+                               ckpt_dir=str(tmp_path)) == {}
+    assert "resumed from step 1" in capsys.readouterr().out
     for arch in ("no-such-arch", "a1-kg"):       # a1-kg is not a trained arch
         with pytest.raises(KeyError):
             ttrain.run_training(arch, steps=1, device="cpu")
