@@ -121,6 +121,22 @@ Phases, each printed on its own line:
      ring that wraps), ``lm/prefill_32k`` and ``lm/decode_32k`` in bf16,
      timed, each checked against ``backend="ref"``; the profiled bf16
      prefill must have run only the tensor-core ``flash_fwd`` kernel;
+ 9e. lm_dist — on phase 9's bf16 weights, after its prefill: (a) prefill
+     of 1 x 4,096 tokens with ``use_collective_matmul`` under ``{"seq":
+     "model"}`` on ``make_test_mesh((1, 4))`` (the q/k/v and w1/w3
+     products on the ppermute ring of ``dist/overlap.py``, 3 hops each)
+     against the plain prefill, p50 of both (LM_DIST_RING); (b)
+     ``pipeline_apply`` over a ("pod", "model") (4, 1) mesh, stage s a
+     danube block with layer s's weights, 8 microbatches of 1 x 4,096
+     against the four blocks in sequence, p50 of both (LM_DIST_PIPELINE);
+     the references first, then the launches of one ring prefill
+     (``lm_dist_ring``) and of one pipeline run (``lm_dist_pipeline``)
+     counted alone and checked exactly; (c) in phases 9, 9b and 9c, for
+     ``lm/prefill_32k``, ``lm/train_4k`` and ``zoo/bst/train_batch``: the
+     dry run's op counts (``launch/hloanalysis.py::analyze_ops`` on meta
+     copies of the step's inputs) against one more step under a fresh
+     profiler, matmul flops within 1 %, the predicted peak bytes beside
+     ``max_memory_allocated`` (DRYRUN_CHECK);
  9d. lm_zoo — qwen3-moe-235b (grouped top-8 MoE, GQA 64/4), llama4-maverick
      (dense | top-1 MoE, GQA 40/8), qwen1.5-32b (MHA, qkv bias) and
      llama3-405b (d_model 16384, GQA 128/8) at full width, weights drawn
@@ -181,10 +197,11 @@ Phases, each printed on its own line:
      histories as ids (tails padded) equal to ``gspmd_lookup`` bit for bit
      (SHIP_LOOKUP);
  10. kernels — each kernel at the inputs the main path gave it: its
-     launches during phases 5-9d, 11b and 11 (by path: ``write``,
+     launches during phases 5-9e, 11b and 11 (by path: ``write``,
      ``maintenance`` for 6c and 11b together, ``serving`` for 6d and
-     11's mesh serving, ``fleet`` for 6e, and ``lm_zoo/<arch>/<cell>``
-     for each of 9d's cells, among them), its time
+     11's mesh serving, ``fleet`` for 6e, ``lm_dist_ring`` and
+     ``lm_dist_pipeline`` for 9e, and
+     ``lm_zoo/<arch>/<cell>`` for each of 9d's cells, among them), its time
      beside the plain version's, the
      bound and a library call, as one JSON line; a kernel under 0.5 ms and
      its library call are timed again as 20 calls in one CUDA graph
@@ -221,7 +238,7 @@ Phases, each printed on its own line:
      field by field; then ``export_shared`` and two ``attach_shared``
      onto the card (a write to one leaves the other); a RECOVER line.
 
-Each of phases 5-9d sets the kernels' launch counts to 0 just before its
+Each of phases 5-9e sets the kernels' launch counts to 0 just before its
 timed batches, calls or steps (per budget mode or cell) and reads them just
 after (the write phase around the whole phase: its launches are its
 read-back queries'; phases 6c and 11b likewise, into one count; phase 6d
@@ -251,10 +268,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import a1_kg  # noqa: E402  (the checkout's, or fail)
+from repro_torch.launch.roofline import (F32_FLOPS as F32_OPS_PER_S,  # noqa: E402
+                                         HBM_BW as HBM_BYTES_PER_S,
+                                         PEAK_FLOPS as BF16_OPS_PER_S,
+                                         peak_flops)
 
 I32MAX = 2**31 - 1
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 
 # a1-kg (configs/a1_kg.py): one shard of FULL, the shape-cell caps
 A1_SHARD = dict(dataclasses.asdict(a1_kg.FULL), n_shards=1)
@@ -324,15 +343,20 @@ KG_MESH = dict(n_films=14_000_000, n_actors=40_000_000,
 MESH_REDUCED = ("n_shards 256 -> 4", "bucket 256 -> 4096")
 # the LM phase: h2o-danube-3-4b FULL (src/repro/configs/h2o_danube_3_4b.py)
 # and its prefill_32k / decode_32k cells (configs/registry.py:87-104)
-BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
 # f32_seq runs past the window, so that the f32 check's mask drops keys
 LM_FULL = dict(f32_seq=4096 + 512, consist=(2, 256), ring=(2, 64, 96),
                prefill_batch=1, decode_steps=16, check_layers=4,
-               train_batch=1, warm_steps=2, timed_steps=8)
+               train_batch=1, warm_steps=2, timed_steps=8, dist_seq=4096,
+               dist_micro=8, dist_calls=3)
 LM_REHEARSE = dict(f32_seq=64, consist=(2, 40), ring=(2, 8, 24),
                    prefill_batch=1, decode_steps=3, seq=96, decode_batch=4,
                    check_layers=4, train_batch=1, warm_steps=2,
-                   timed_steps=3, train_seq=64)
+                   timed_steps=3, train_seq=64, dist_seq=64, dist_micro=3,
+                   dist_calls=2)
+# phase 9e (c): the dry run's matmul flops (launch/hloanalysis.py, a trace
+# on meta tensors) against the profiler's count of the same aten matmuls
+DRYRUN_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+DRYRUN_FLOP_TOL = 0.01
 # float32 model outputs, kernel path against backend="ref" or decode
 # against forward: max |a - b| over max |b|.  Each op rounds at ~1e-7
 # relative, sums of up to 10,240 terms reach ~1e-5, 24 layers add up.
@@ -4687,6 +4711,8 @@ def phase_lm_prefill(dev, cfg, p, sizes, launches, rec):
         _check_tc_route("lm/prefill_32k", lambda: _profile(
             "lm_prefill_32k", lambda: T.prefill(p, cfg, toks), p50,
             warm=True), {"flash_fwd": cfg.n_layers})
+    _dryrun_check(dev, "lm/prefill_32k",
+                  lambda p_, t_: T.prefill(p_, cfg, t_), (p, toks))
 
 
 def phase_lm_decode(dev, cfg, p, sizes, launches):
@@ -4773,12 +4799,216 @@ def phase_lm(dev, cfg, sizes, launches, rec):
     phase_lm_prefill(dev, cfg, p, sizes, launches, rec)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    phase_lm_dist(dev, cfg, p, sizes, launches)
     phase_lm_decode(dev, cfg, p, sizes, launches)
     del p
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     say("LM_PHASE", seconds=time.perf_counter() - t0, config=cfg.name,
         source="src/repro/configs/h2o_danube_3_4b.py")
+
+
+# ---------------------------------------------------------------------------
+# phase 9e, the dist substrate and the dry run's counts: the ring matmul in
+# danube's prefill, danube's blocks as a 4-stage pipeline, and the op counts
+# of three timed steps against the profiler (_dryrun_check, called by the
+# phases that time them: 9, 9b and 9c)
+# ---------------------------------------------------------------------------
+
+class _Permutes:
+    """An op counter (kernels/_cuda.py::COUNTERS) that counts the lockstep
+    ppermutes: each is one hop of the ring."""
+
+    def __init__(self):
+        self.hops = 0
+
+    def kernel(self, name, flops, nbytes, dtype):
+        pass
+
+    def collective(self, kind, nbytes, group):
+        self.hops += kind == "collective-permute"
+
+
+def _timed_pair(dev, fns: dict, calls: int) -> dict:
+    """p50 seconds of each of two functions, called in turns (a, b, b,
+    a, ...) after one warm call each."""
+    import numpy as np
+    secs = {k: [] for k in fns}
+    for f in fns.values():
+        f()
+    _sync(dev)
+    order = list(fns)
+    for i in range(calls):
+        for k in (order if i % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            fns[k]()
+            _sync(dev)
+            secs[k].append(time.perf_counter() - t0)
+    return {k: float(np.median(v)) for k, v in secs.items()}
+
+
+def phase_lm_dist(dev, cfg, p, sizes, launches):
+    """Phase 9e (a) and (b), on phase 9's bf16 weights.  (a) danube's
+    prefill of 1 x ``dist_seq`` tokens with ``use_collective_matmul`` under
+    ``{"seq": "model"}`` on a (1, 4) mesh (its q/k/v and w1/w3 products run
+    the ppermute ring of dist/overlap.py) against the plain prefill.  (b)
+    ``pipeline_apply`` over a ("pod", "model") (4, 1) mesh, stage s one
+    danube block with layer s's weights, ``dist_micro`` microbatches of 1 x
+    ``dist_seq``, against the four blocks in sequence.  The references
+    (the plain prefill, the blocks in sequence) run first; the launch
+    counts are set to 0 just before the one checked ring prefill and read
+    just after, as the ``lm_dist_ring`` path, and likewise around the one
+    checked pipeline run, as ``lm_dist_pipeline``; each must be exact.
+    The timed pairs come after, uncounted."""
+    import dataclasses
+    import torch
+    from repro_torch.core.backend import resolve
+    from repro_torch.core.precision import f32_accumulation
+    from repro_torch.dist import mesh as mesh_mod
+    from repro_torch.dist.pipeline import pipeline_apply
+    from repro_torch.dist.sharding import rules_context
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    S, M, calls = sizes["dist_seq"], sizes["dist_micro"], sizes["dist_calls"]
+    L = cfg.n_layers
+
+    # (a) the ring matmul
+    toks = _lm_tokens(cfg, dev, 1, S, 31)
+    cfg_cm = dataclasses.replace(cfg, use_collective_matmul=True)
+    mesh = make_test_mesh((1, 4), device=dev)
+    hops = _Permutes()
+
+    def ring():
+        with mesh, rules_context({"seq": "model"}):
+            return T.prefill(p, cfg_cm, toks)[0]
+    lp = T.prefill(p, cfg, toks)[0]
+    _sync(dev)
+    _cuda.reset_launches()
+    _cuda.COUNTERS.append(hops)
+    try:
+        lr = ring()
+    finally:
+        _cuda.COUNTERS.pop()
+    _sync(dev)
+    launches["lm_dist_ring"] = dict(_cuda.LAUNCHES)
+    # one prefill: two norms a layer and the final one, one attention a
+    # layer
+    _lm_launch_check(launches, "lm_dist_ring", {
+        "rmsnorm_fwd": 2 * L + 1, "flash_fwd": L}, 1, dev)
+    err = _rel_err(lr, lp)
+    # q, k, v, w1 and w3 a layer, each three hops of a ring of four
+    check(hops.hops == 5 * 3 * L,
+          f"lm/dist_ring: {hops.hops} ppermute hops")
+    check(lr.shape == lp.shape and err <= LM_BF16_TOL,
+          f"lm/dist_ring: ring vs plain prefill {err}")
+    p50 = _timed_pair(dev, {"plain": lambda: T.prefill(p, cfg, toks),
+                            "ring": ring}, calls)
+    say("LM_DIST_RING", cell="lm/prefill_4k_ring", mesh=[1, 4],
+        rules={"seq": "model"}, seq=S, layers=L,
+        ppermute_hops=hops.hops, rel_err_vs_plain=err,
+        launches={k: launches["lm_dist_ring"][k] for k in ("rmsnorm_fwd",
+                                                           "flash_fwd")},
+        tolerance=LM_BF16_TOL, plain_p50_ms=p50["plain"] * 1e3,
+        ring_p50_ms=p50["ring"] * 1e3, ring_over_plain=p50["ring"]
+        / p50["plain"])
+
+    # (b) the pipeline of four blocks
+    be = resolve(None)
+    pmesh = make_test_mesh((4, 1), ("pod", "model"), device=dev)
+    layer = {n: t.unbind(0) for n, t in p["blocks"][0].items()}
+    stage_params = [{n: ts[s % L] for n, ts in layer.items()}
+                    for s in mesh_mod.axis_index(pmesh, "pod")]
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+
+    def block(bp, h):
+        return T._block(bp, cfg, "dense", h, pos, be)[0]
+    mtoks = _lm_tokens(cfg, dev, M, S, 32)
+    x = p["embed"][mtoks.long()].to(cfg.dtype)[:, None]    # (M, 1, S, D)
+
+    @torch.no_grad()
+    @f32_accumulation()
+    def pipe():
+        return pipeline_apply(block, stage_params, x, mesh=pmesh,
+                              axis="pod", n_stages=4, n_microbatches=M)
+
+    @torch.no_grad()
+    @f32_accumulation()
+    def sequence():
+        out = []
+        for m in range(M):
+            h = x[m]
+            for bp in stage_params:
+                h = block(bp, h)
+            out.append(h)
+        return torch.stack(out)
+    want = sequence()
+    _sync(dev)
+    _cuda.reset_launches()
+    outs = pipe()
+    _sync(dev)
+    launches["lm_dist_pipeline"] = dict(_cuda.LAUNCHES)
+    # every stage runs its block at each of the M + 3 ticks: two norms and
+    # one attention a block
+    _lm_launch_check(launches, "lm_dist_pipeline", {
+        "rmsnorm_fwd": 2 * 4, "flash_fwd": 4}, M + 3, dev)
+    last = outs[3]
+    perr = _rel_err(last, want)
+    check(perr <= LM_BF16_TOL and not any(bool(o.any()) for o in outs[:3]),
+          f"lm/dist_pipeline: pipeline vs blocks in sequence {perr}")
+    del outs, last
+    p50p = _timed_pair(dev, {"sequence": sequence, "pipeline": pipe}, calls)
+    say("LM_DIST_PIPELINE", cell="lm/pipeline_4x", mesh=[4, 1],
+        stages=4, microbatches=M, seq=S, ticks=M + 4 - 1,
+        block_calls=4 * (M + 3), rel_err_vs_sequence=perr,
+        tolerance=LM_BF16_TOL, sequence_p50_ms=p50p["sequence"] * 1e3,
+        pipeline_p50_ms=p50p["pipeline"] * 1e3,
+        pipeline_over_sequence=p50p["pipeline"] / p50p["sequence"],
+        launches={k: launches["lm_dist_pipeline"][k]
+                  for k in ("rmsnorm_fwd", "flash_fwd")})
+    del x, want
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    say("LM_DIST_PHASE", seconds=time.perf_counter() - t_phase)
+
+
+def _dryrun_check(dev, cell, fn, args):
+    """Phase 9e (c): ``analyze_ops`` of ``fn(*args)`` on meta copies of
+    ``args``, and one call of ``fn(*args)`` under a fresh profiler
+    (``with_flops``, the CPU side's aten ops); the matmul flops must agree
+    within DRYRUN_FLOP_TOL on the card.  Prints DRYRUN_CHECK with the
+    predicted peak bytes beside ``max_memory_allocated``.  The call is one
+    more step of the cell."""
+    import torch
+    from repro_torch.core.tree import map_leaves
+    from repro_torch.launch.hloanalysis import analyze_ops
+    t0 = time.perf_counter()
+    a, _ = analyze_ops(fn, *map_leaves(lambda t: t.to("meta"), args))
+    trace_s = time.perf_counter() - t0
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            record_shapes=True, with_flops=True) as prof:
+        fn(*args)
+        _sync(dev)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    measured = sum(e.flops for e in prof.key_averages()
+                   if e.key in DRYRUN_MATMULS)
+    err = abs(measured - a.matmul_flops) / max(a.matmul_flops, 1.0)
+    if dev.type == "cuda":    # on the CPU the kernels' plain versions
+        check(err <= DRYRUN_FLOP_TOL,   # add matmuls of their own
+              f"{cell}: dry-run matmul flops {a.matmul_flops} vs the "
+              f"profiler's {measured}")
+    say("DRYRUN_CHECK", cell=cell, predicted_matmul_flops=a.matmul_flops,
+        profiler_matmul_flops=measured, rel_err=err,
+        tolerance=DRYRUN_FLOP_TOL, kernel_flops=a.kernel_flops,
+        kernel_calls=a.kernel_calls, predicted_peak_bytes=a.peak_bytes,
+        max_memory_allocated=peak,
+        peak_ratio=None if not peak else a.peak_bytes / peak,
+        host_reads=a.host_reads, n_ops=a.n_ops, trace_s=trace_s)
 
 
 # ---------------------------------------------------------------------------
@@ -5571,6 +5801,9 @@ def phase_lm_train(dev, cfg, sizes, launches, rec):
                                                         warm=True),
                         {"flash_fwd": 2 * L, "flash_bwd_dkv": L,
                          "flash_bwd_dq": L})
+    _dryrun_check(dev, "lm/train_4k",
+                  lambda *a: lm_train_step(*a, cfg, ocfg),
+                  (p, state, tokens, targets))
     del p, state
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -5772,6 +6005,9 @@ def _bst_cells(dev, sizes):
                batch=B, n_items=cfg.n_items, optimizer=str(ocfg),
                reduced=reduced, source=spec.source,
                samples_per_s=lambda p50: B / p50)
+    _dryrun_check(dev, "zoo/bst/train_batch",
+                  lambda *a: steps.recsys_train_step(*a, cfg, ocfg),
+                  (params, state, *batch))
     del state                  # 25.6 GB of moments, before any backward
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -6803,37 +7039,27 @@ def _bound(name, args, kw):
         nbytes = 4 * N * D + 16 * N + 4 * R * D + 8 * R + 8 * R * k
         ops = 2 * R * N * D
     elif name == "rmsnorm_fwd":
-        # x read and y written once, the scale once; ~4 flops an element
-        x = args[0]
-        nbytes = (2 * x.numel() + x.shape[-1]) * x.element_size()
-        ops = 4 * x.numel()
-    elif name == "flash_fwd":
-        # q, k, v read and out written once, lse written; 4*D flops a live
-        # (query, key) pair at the bf16 tensor-core rate
-        q, k, _ = args
-        BHq, Sq, D = q.shape
-        live = _live_pairs(Sq, k.shape[1], kw["causal"], kw["window"],
-                           kw["q_offset"])
-        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
-            + 4 * BHq * Sq
-        t_ops = 4.0 * D * BHq * live / BF16_OPS_PER_S
+        # the kernel's own cost function and rate (its meta route reports
+        # the same to the dry run): x read and y written once, the scale
+        # once; ~4 flops an element, float32 arithmetic
+        from repro_torch.kernels.rmsnorm.kernel import (RATE_DTYPE,
+                                                        rmsnorm_fwd_cost)
+        ops, nbytes = rmsnorm_fwd_cost(args[0])
+        t_ops = ops / peak_flops(RATE_DTYPE)
         t_bytes = nbytes / HBM_BYTES_PER_S
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes >= t_ops else "operations")
-    elif name in ("flash_bwd_dkv", "flash_bwd_dq"):
-        # q, k, v, dout, lse and delta read once, dk and dv (or dq)
-        # written once; a live pair costs 8*D flops for dk and dv (s, dp,
-        # p^T dout, ds^T q) and 6*D for dq (s, dp, ds k) at the bf16
-        # tensor-core rate
-        q, k = args[0], args[1]
-        BHq, Sq, D = q.shape
-        live = _live_pairs(Sq, k.shape[1], kw["causal"], kw["window"],
-                           kw["q_offset"])
-        out = 2 * k.numel() if name == "flash_bwd_dkv" else q.numel()
-        nbytes = (2 * q.numel() + 2 * k.numel() + out) * q.element_size() \
-            + 8 * BHq * Sq
-        per_pair = 8.0 if name == "flash_bwd_dkv" else 6.0
-        t_ops = per_pair * D * BHq * live / BF16_OPS_PER_S
+    elif name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        # the kernels' own cost function and rate (their meta routes
+        # report the same to the dry run): the inputs read and the outputs
+        # written once; 4*D flops a live (query, key) pair forward, 8*D for
+        # dk and dv, 6*D for dq, at q's dtype's rate (the bf16 tensor
+        # cores' on the main path)
+        from repro_torch.kernels.flash_attention.kernel import flash_cost
+        ops, nbytes = flash_cost(name, args[0], args[1],
+                                 causal=kw["causal"], window=kw["window"],
+                                 q_offset=kw["q_offset"])
+        t_ops = ops / peak_flops(args[0].dtype)
         t_bytes = nbytes / HBM_BYTES_PER_S
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes >= t_ops else "operations")
@@ -6883,11 +7109,8 @@ def _ranged_args(args, kw):
 
 def _live_pairs(Sq, Sk, causal, window, q_offset) -> int:
     """(query, key) pairs a head that the mask leaves live."""
-    import numpy as np
-    qp = np.arange(Sq, dtype=np.int64) + q_offset
-    hi = np.minimum(qp, Sk - 1) if causal else np.full(Sq, Sk - 1)
-    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros(Sq)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
+    from repro_torch.kernels.flash_attention.kernel import live_pairs
+    return live_pairs(Sq, Sk, causal, window, q_offset)
 
 
 def _bits(ts):
@@ -7270,6 +7493,8 @@ def phase_kernel_report(launches, best, extra=None):
                                         "expand",
                                         "searchsorted_left_ranged")),
                        ("lm_decode", ("rmsnorm_fwd",)),
+                       ("lm_dist_ring", ("rmsnorm_fwd", "flash_fwd")),
+                       ("lm_dist_pipeline", ("rmsnorm_fwd", "flash_fwd")),
                        ("lm_train", LM_KERNELS)) + tuple(
             (f"lm_zoo/{a}/{c}", ("rmsnorm_fwd", "flash_fwd")
              if c == "prefill_32k" else ("rmsnorm_fwd",))

@@ -1,8 +1,8 @@
 """h2o-danube-3-4b [arXiv:2401.16818; unverified]
 
-Port of ``repro/configs/h2o_danube_3_4b.py`` (the model configs and the
-shape cells; the TPU sharding rules, which only the JAX dry run reads, stay
-there).  24L d_model=3840 32H (GQA kv=8) d_head=120 d_ff=10240 vocab=32000
+Port of ``repro/configs/h2o_danube_3_4b.py``: the model configs, the shape
+cells and the train cells' sharding rules (pure data parallelism over the
+whole mesh, optimizer state ZeRO-split).  24L d_model=3840 32H (GQA kv=8) d_head=120 d_ff=10240 vocab=32000
 with sliding-window attention (window 4096): the decode KV cache is a
 window-bounded ring buffer.
 """
@@ -28,5 +28,12 @@ SPEC = register(ArchSpec(
     shapes=lm_shapes(window=4096, accum_train=1),
     source="arXiv:2401.16818; unverified",
     note="SWA window 4096; long_500k decode uses the ring-buffer cache "
-         "(memory O(window), compute O(window) per token)."))
+         "(memory O(window), compute O(window) per token).",
+    # a 4B model on a 256-chip pod wants no tensor parallelism at train_4k:
+    # pure data parallelism over the whole mesh, params replicated,
+    # optimizer states and the grad accumulator ZeRO-split
+    rules_override={"fsdp": None, "tensor": None, "heads": None,
+                    "kv_heads": None, "ff": None, "vocab": None,
+                    "batch": ("pod", "data", "model")},
+    opt_rules_override={"fsdp": ("data", "model")}))
 SHAPES, SOURCE = SPEC.shapes, SPEC.source

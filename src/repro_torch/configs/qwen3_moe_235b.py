@@ -28,4 +28,5 @@ SPEC = register(ArchSpec(
     shapes=lm_shapes(window=0, accum_train=8),
     source="hf:Qwen/Qwen3-30B-A3B (scaled family layout); verified-tier: hf",
     note="MoE token dispatch = A1 query shipping (tokens sent to their "
-         "experts' owners)."))
+         "experts' owners).",
+    rules_override={"seq": "model"}))   # sequence parallelism for activations

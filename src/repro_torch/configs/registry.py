@@ -23,9 +23,9 @@ class ShapeCell:
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
-    """An architecture: its full-size config, a reduced config (CPU tests)
-    and its shape cells.  (The JAX spec also carries TPU sharding-rule
-    overrides, which one device does not read.)"""
+    """An architecture: its full-size config, a reduced config (CPU tests),
+    its shape cells and its sharding-rule overrides (``dist/sharding.py``),
+    which ``launch/steps.py::build_cell`` scopes to the train cells."""
     arch_id: str
     family: str                # 'lm' | 'gnn' | 'recsys' | 'a1'
     model: Any                 # full-size config
@@ -33,6 +33,10 @@ class ArchSpec:
     shapes: tuple              # tuple[ShapeCell, ...]
     source: str = ""
     note: str = ""
+    rules_override: dict = dataclasses.field(default_factory=dict)
+    # optimizer-state/grad-accum sharding rules (ZeRO-style splits where
+    # params and optimizer shard differently)
+    opt_rules_override: dict = dataclasses.field(default_factory=dict)
 
     def cell(self, shape_id: str) -> ShapeCell:
         return cell(self.shapes, shape_id)

@@ -134,6 +134,12 @@ def make_store(cfg: StoreConfig, device) -> GraphStore:
         for name, (shape, fill, dtype) in _layout(cfg).items()})
 
 
+def make_store_shapes(cfg: StoreConfig) -> GraphStore:
+    """An empty store's fields as ``meta`` tensors (the dry run's shapes:
+    no allocation)."""
+    return make_store(cfg, "meta")
+
+
 def store_from_numpy(cfg: StoreConfig, arrays: dict, device) -> GraphStore:
     """Carry a store across: ``arrays`` maps every field name to a numpy
     array of the field's shape; values are copied to ``device`` unchanged."""

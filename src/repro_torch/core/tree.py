@@ -3,9 +3,13 @@
 The port keeps the JAX package's parameter and optimizer-state layouts as
 plain containers.  Dict keys are visited in sorted order and lists in
 order, as ``jax.tree.flatten`` does; anything else (a tensor, or a tuple
-such as Adafactor's factored second moment) is a leaf.
+such as Adafactor's factored second moment) is a leaf.  :func:`map_leaves`
+and :func:`walk_leaves` also open tuples and dataclasses, with the leaf
+test the caller gives (tensors by default).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -45,6 +49,66 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def _is_tensor(x) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def map_leaves(fn, tree, is_leaf=_is_tensor):
+    """``fn`` over the leaves of ``tree`` in a tree of the same structure.
+    Unlike :func:`tree_map`, tuples and dataclasses are containers too:
+    a step's arguments (``GraphBatch``, ``OptState``) and their spec
+    trees.  What is neither a leaf nor a container (a dataclass's int)
+    passes through."""
+    if is_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v, is_leaf) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_leaves(fn, v, is_leaf) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_leaves(fn, getattr(tree, f.name), is_leaf)
+            for f in dataclasses.fields(tree) if f.init})
+    return tree
+
+
+def walk_leaves(tree, is_leaf=_is_tensor):
+    """(path, leaf) over the leaves :func:`map_leaves` visits, dict keys in
+    sorted order; a dataclass's key is its field's name."""
+    if is_leaf(tree):
+        yield (), tree
+        return
+    if isinstance(tree, dict):
+        items = ((k, tree[k]) for k in sorted(tree))
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        items = ((f.name, getattr(tree, f.name))
+                 for f in dataclasses.fields(tree))
+    else:
+        return
+    for key, sub in items:
+        for path, leaf in walk_leaves(sub, is_leaf):
+            yield (key, *path), leaf
+
+
+def get_path(tree, path):
+    """The subtree at ``path`` (as :func:`leaves` or :func:`walk_leaves`
+    give it): ``tree[path[0]][path[1]]...``, a field by name where the
+    node is a dataclass."""
+    for key in path:
+        tree = getattr(tree, key) if dataclasses.is_dataclass(tree) \
+            else tree[key]
+    return tree
+
+
+def meta_tree(shapes, dtype):
+    """A tree of shape tuples as ``meta`` tensors of ``dtype``: the dry
+    run's ``ShapeDtypeStruct``s (a shape and a dtype, no allocation)."""
+    return tree_map(lambda s: torch.empty(s, dtype=dtype, device="meta"),
+                    shapes)
+
+
 def _to_tensor(a, shape, dtype, device) -> torch.Tensor:
     """A copy of the numpy array ``a`` (ml_dtypes bfloat16 included, as
     ``jax.device_get`` gives it) as a ``dtype`` tensor on ``device``;
@@ -68,10 +132,8 @@ def copy_from_numpy(shapes, tree, dtype, device):
     the caller's arrays."""
     out = tree_map(lambda s: None, shapes)
     for path, shape in leaves(shapes):
-        src = tree
-        for key in path:
-            src = src[key]
-        set_path(out, path, _to_tensor(src, shape, dtype, device))
+        set_path(out, path, _to_tensor(get_path(tree, path), shape, dtype,
+                                       device))
     return out
 
 

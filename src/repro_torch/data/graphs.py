@@ -9,10 +9,12 @@ device (the GPU unless the caller passes ``device``).
   ogb_products    2.45 M nodes / 61.9 M edges / 100 features
   molecule        30-atom molecular graphs, batch 128
 
-``graph_batch_shape_dtypes`` (the dry run's shapes) comes with ROADMAP
-item 16.
+:func:`graph_batch_shape_dtypes` gives the dry run's batch of ``meta``
+tensors.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -98,3 +100,24 @@ def molecule_batch(batch: int = 128, n_nodes: int = 30, n_edges: int = 64,
         train_mask=torch.ones((batch,), dtype=torch.bool, device=dev),
         positions=_t(pos, dev, dtype),
         graph_ids=_t(gid, dev), n_graphs=batch)
+
+
+def graph_batch_shape_dtypes(n_nodes: int, n_edges: int, d_feat: int, *,
+                             with_positions: bool = False,
+                             graph_ids: bool = False, n_graphs: int = 1,
+                             label_shape: Optional[tuple] = None,
+                             dtype=torch.float32) -> GraphBatch:
+    """A GraphBatch of ``meta`` tensors for the dry run (no allocation)."""
+    def sds(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+    lbl = label_shape or (n_nodes,)
+    return GraphBatch(
+        node_feat=sds((n_nodes, d_feat), dtype),
+        edge_src=sds((n_edges,), torch.int32),
+        edge_dst=sds((n_edges,), torch.int32),
+        labels=sds(lbl, torch.int32 if len(lbl) == 1 and not graph_ids
+                   else torch.float32),
+        train_mask=sds(lbl[:1], torch.bool),
+        positions=sds((n_nodes, 3), dtype) if with_positions else None,
+        graph_ids=sds((n_nodes,), torch.int32) if graph_ids else None,
+        n_graphs=n_graphs)

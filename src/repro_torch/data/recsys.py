@@ -2,8 +2,8 @@
 
 Port of ``repro/data/recsys.py``: the same numpy draws, so that a seed
 gives the same arrays bit for bit, as tensors on the device (the GPU
-unless the caller passes ``device``).  ``bst_batch_shape_dtypes`` (the dry
-run's shapes) comes with ROADMAP item 16.
+unless the caller passes ``device``); :func:`bst_batch_shape_dtypes` gives
+the dry run's ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -26,3 +26,11 @@ def bst_batch(*, batch: int, seq_len: int = 20, n_items: int = 1_000_000,
     labels = (rng.uniform(size=batch) < 0.2).astype(np.float32)
     return tuple(torch.from_numpy(a).to(dev)
                  for a in (hist, target, dense, labels))
+
+
+def bst_batch_shape_dtypes(*, batch: int, seq_len: int = 20,
+                           n_dense: int = 8):
+    """:func:`bst_batch`'s tensors on ``meta`` (the dry run's shapes)."""
+    return tuple(torch.empty(s, dtype=d, device="meta") for s, d in (
+        ((batch, seq_len), torch.int32), ((batch,), torch.int32),
+        ((batch, n_dense), torch.float32), ((batch,), torch.float32)))

@@ -14,6 +14,14 @@ stream), allocates nothing, and returns ``cudaGetLastError()``;
 the calls that launched its kernel (a call of ``sort_pairs`` or
 ``knn_topk`` runs a short sequence of launches and counts once) — a wrapper
 adds one exactly where it launches.
+
+``COUNTERS`` holds the op counters in scope (``launch/hloanalysis.py::
+analyze_ops``).  The LM's kernel wrappers have a ``meta`` route for the
+dry run: outputs of the right shape and dtype, allocating nothing, and
+their work reported to the innermost counter (:func:`count_kernel`) from
+the same cost functions that ``chip_smoke.py`` bounds them by.  The
+lockstep collectives (``dist/mesh.py``) report theirs likewise
+(:func:`count_collective`).
 """
 from __future__ import annotations
 
@@ -43,6 +51,31 @@ LAUNCHES = {"searchsorted_left_ranged": 0, "searchsorted_left": 0,
 _LIBS: dict = {}
 _FUNCS: dict = {}
 _LOCK = threading.Lock()
+
+
+COUNTERS: list = []
+
+
+def require_meta(*tensors) -> None:
+    """Every tensor of a meta route must be on ``meta``: a kernel never
+    mixes devices, and never falls back."""
+    if not all(t.device.type == "meta" for t in tensors):
+        raise ValueError(f"kernel inputs must share one device, got "
+                         f"{[str(x.device) for x in tensors]}")
+
+
+def count_kernel(name: str, flops: float, nbytes: float, dtype) -> None:
+    """A kernel's work on its meta route, to the innermost counter;
+    ``dtype`` is the one whose peak rate its flops run at."""
+    if COUNTERS:
+        COUNTERS[-1].kernel(name, flops, nbytes, dtype)
+
+
+def count_collective(kind: str, nbytes: int, group: int) -> None:
+    """A lockstep collective (``kind`` as XLA names it, e.g. "all-reduce"):
+    one shard's result bytes and the size of its group."""
+    if COUNTERS:
+        COUNTERS[-1].collective(kind, nbytes, group)
 
 
 def reset_launches() -> None:

@@ -15,16 +15,18 @@ outside its kernels) and returns dq (``flash_bwd_dq``) and dk, dv
 (``flash_bwd_dkv``) in the inputs' dtype, with ``p = exp(s - lse)`` on live
 pairs and ``ds = p * (dp - delta) * scale``.  Any Sq and Sk >= 1 work (the
 kernels mask the ragged tails; Pallas needs multiples of its blocks), and
-D <= 128.  Each wrapper runs its plain version for CPU tensors and launches
-its kernel for CUDA tensors.  On the card the route is chosen by dtype
-alone: bf16 inputs run the tensor-core kernels (``flash_fwd_tc_kernel``,
-``flash_bwd_dkv_tc_kernel``, ``flash_bwd_dq_tc_kernel``), float32 the
-CUDA-core ones.
+D <= 128.  Each wrapper runs its plain version for CPU tensors, launches
+its kernel for CUDA tensors, and on ``meta`` tensors (the dry run) returns
+the outputs' shapes and reports :func:`flash_cost`.  On the card the route
+is chosen by dtype alone: bf16 inputs run the tensor-core kernels
+(``flash_fwd_tc_kernel``, ``flash_bwd_dkv_tc_kernel``,
+``flash_bwd_dq_tc_kernel``), float32 the CUDA-core ones.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _cuda
@@ -84,6 +86,36 @@ def tile_class(q0: int, rows: int, Sq: int, k0: int, cols: int, Sk: int, *,
             (window <= 0 or k0 > qhi - window):
         return FULL
     return MASKED
+
+
+def live_pairs(Sq: int, Sk: int, causal: bool, window: int,
+               q_offset: int = 0) -> int:
+    """(query, key) pairs of one head that the mask leaves live."""
+    qp = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qp, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros(Sq)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+# flops a live (query, key) pair costs a head dim: s and p v forward; s,
+# dp, p^T dout and ds^T q for dk and dv; s, dp and ds k for dq
+PAIR_FLOPS = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}
+
+
+def flash_cost(name: str, q, k, *, causal: bool, window: int,
+               q_offset: int = 0) -> tuple:
+    """(flops, bytes) of one call of kernel ``name`` on q (BHq, Sq, D) and
+    k, v (BHkv, Sk, D): the flops of the live pairs, and q, k, v (and dout,
+    lse, delta for the backward) read once, the outputs written once."""
+    BHq, Sq, D = q.shape
+    live = live_pairs(Sq, k.shape[1], causal, window, q_offset)
+    es = q.element_size()
+    if name == "flash_fwd":
+        nbytes = (2 * q.numel() + 2 * k.numel()) * es + 4 * BHq * Sq
+    else:
+        out = 2 * k.numel() if name == "flash_bwd_dkv" else q.numel()
+        nbytes = (2 * q.numel() + 2 * k.numel() + out) * es + 8 * BHq * Sq
+    return PAIR_FLOPS[name] * D * BHq * live, nbytes
 
 
 def flash_fwd_plain(q, k, v, *, causal: bool, window: int, scale: float,
@@ -148,6 +180,13 @@ def flash_fwd(q, k, v, *, causal: bool, window: int, scale: float,
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, window=window,
                                scale=scale, q_offset=q_offset)
+    if q.device.type == "meta":
+        _cuda.require_meta(q, k, v)
+        _cuda.count_kernel("flash_fwd", *flash_cost(
+            "flash_fwd", q, k, causal=causal, window=window,
+            q_offset=q_offset), q.dtype)
+        return torch.empty_like(q), q.new_empty(q.shape[:2],
+                                                dtype=torch.float32)
     _cuda.require_cuda(q, k, v)
     _check_positions(q, k, window, q_offset, "flash_fwd")
     BHq, Sq, D = q.shape
@@ -272,6 +311,12 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, window: int,
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.device.type == "meta":
+        _cuda.require_meta(q, k, v, do, lse, delta)
+        _cuda.count_kernel("flash_bwd_dkv", *flash_cost(
+            "flash_bwd_dkv", q, k, causal=causal, window=window,
+            q_offset=q_offset), q.dtype)
+        return dk, dv
     _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv),
                 k.shape[0], **kw)
     return dk, dv
@@ -285,6 +330,12 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, window: int,
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     dq = torch.empty_like(q)
+    if q.device.type == "meta":
+        _cuda.require_meta(q, k, v, do, lse, delta)
+        _cuda.count_kernel("flash_bwd_dq", *flash_cost(
+            "flash_bwd_dq", q, k, causal=causal, window=window,
+            q_offset=q_offset), q.dtype)
+        return dq
     if q.shape[0] and q.shape[1]:
         _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,),
                     q.shape[0], **kw)

@@ -3,8 +3,9 @@ PyTorch version.
 
 Port of ``repro/kernels/rmsnorm/kernel.py::rmsnorm_fwd``: for each row of
 ``x`` (..., d), ``x * rsqrt(mean(x^2) + eps) * scale`` in float32, returned
-in x's dtype.  :func:`rmsnorm_fwd` runs the plain version for CPU tensors
-and launches the kernel for CUDA tensors.
+in x's dtype.  :func:`rmsnorm_fwd` runs the plain version for CPU tensors,
+launches the kernel for CUDA tensors, and on ``meta`` tensors (the dry run)
+returns the output's shape and reports :func:`rmsnorm_fwd_cost`.
 """
 from __future__ import annotations
 
@@ -21,6 +22,17 @@ def rmsnorm_fwd_plain(x, scale, *, eps: float = 1e-6):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+# the dtype whose peak the kernel's flops run at: float32 arithmetic
+# outside the tensor cores, whatever x's dtype
+RATE_DTYPE = torch.float32
+
+
+def rmsnorm_fwd_cost(x) -> tuple:
+    """(flops, bytes) of one call on ``x``: x read and y written once, the
+    scale once; ~4 flops an element."""
+    return 4 * x.numel(), (2 * x.numel() + x.shape[-1]) * x.element_size()
 
 
 def _check(x, scale):
@@ -41,6 +53,10 @@ def rmsnorm_fwd(x, scale, *, eps: float = 1e-6):
     _check(x, scale)
     if x.device.type == "cpu":
         return rmsnorm_fwd_plain(x, scale, eps=eps)
+    if x.device.type == "meta":
+        _cuda.require_meta(x, scale)
+        _cuda.count_kernel("rmsnorm_fwd", *rmsnorm_fwd_cost(x), RATE_DTYPE)
+        return torch.empty_like(x)
     _cuda.require_cuda(x, scale)
     d = x.shape[-1]
     n = x.numel() // d if d else 0

@@ -3,9 +3,9 @@ running-softmax recurrence in plain PyTorch.
 
 Port of ``repro/models/attention.py::mha``.  The JAX module routes to the
 Pallas kernel on a TPU and otherwise runs a ``lax.scan`` over kv chunks with
-a running (max, denominator, accumulator); its ``constrain`` calls shard the
-intermediates over a TPU mesh, and the port runs on one device, so it has
-none.  Here the backend decides:
+a running (max, denominator, accumulator), whose ``constrain`` calls mark
+how the intermediates shard over a mesh; the port's plain path carries the
+same calls (``dist/sharding.py``).  Here the backend decides:
 
   * ``kernel`` — ``kernels/flash_attention/ops.py::mha``: the CUDA kernel
     for CUDA tensors, its plain version for CPU tensors;
@@ -17,11 +17,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.backend import resolve
+from repro_torch.dist.sharding import constrain
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 
 _CHUNK = 2048      # flash-style kv chunk of the plain path
 _ROWS = 4096       # query rows a pass (bounds the (B, H, rows, chunk) scores)
+_BHSS = ("batch", "heads", None, None)
 
 
 def mha(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
@@ -43,9 +45,14 @@ def chunked_mha(q, k, v, *, causal: bool = True, window: int = 0,
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = Hq // Hkv
+    q = constrain(q, _BHSS)
+    k = constrain(k, ("batch", None, None, None))
+    v = constrain(v, ("batch", None, None, None))
     if G > 1:
         k = torch.repeat_interleave(k, G, dim=1)
         v = torch.repeat_interleave(v, G, dim=1)
+    k = constrain(k, _BHSS)
+    v = constrain(v, _BHSS)
     C = min(_CHUNK, Sk)
     if Sk % C != 0:
         C = Sk
@@ -64,7 +71,7 @@ def chunked_mha(q, k, v, *, causal: bool = True, window: int = 0,
                 continue
             kb = k[:, :, c0:c0 + C].float()
             vb = v[:, :, c0:c0 + C].float()
-            s = torch.einsum("bhqd,bhkd->bhqk", qf, kb)
+            s = constrain(torch.einsum("bhqd,bhkd->bhqk", qf, kb), _BHSS)
             kpos = c0 + kpos0
             msk = torch.ones((b - a, C), dtype=torch.bool, device=q.device)
             if causal:
@@ -76,7 +83,8 @@ def chunked_mha(q, k, v, *, causal: bool = True, window: int = 0,
             p = torch.where(msk, torch.exp(s - mx_new), 0.0)
             alpha = torch.exp(mx - mx_new)
             den = den * alpha + torch.sum(p, dim=-1, keepdim=True)
-            acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+            acc = constrain(acc * alpha + torch.einsum("bhqk,bhkd->bhqd",
+                                                       p, vb), _BHSS)
             mx = mx_new
         out[:, :, a:b] = (acc / torch.clamp(den, min=1e-30)).to(q.dtype)
-    return out
+    return constrain(out, _BHSS)

@@ -7,7 +7,9 @@ rows and an ``index_add`` onto the destinations (``jax.ops.segment_sum``
 there), into N + 1 rows whose last, the padding edges' sink, is dropped.
 On the CPU the adds run in edge order; on a GPU they are atomic, so the
 order of a row's sum, and its last bits, vary from run to run.
-``mlp_shape_dtypes`` (the dry run's shapes) comes with ROADMAP item 16.
+``constrain_batch`` marks the JAX package's sharding of a batch
+(``dist/sharding.py``), and ``mlp_shape_dtypes`` gives the dry run's
+``meta`` shapes.
 """
 from __future__ import annotations
 
@@ -16,6 +18,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.tree import meta_tree
+from repro_torch.dist.sharding import constrain
 
 
 @dataclasses.dataclass
@@ -121,11 +126,28 @@ def mlp_apply(params, x, *, act=F.relu, final_act=False):
     return x
 
 
+def mlp_shapes(dims, layer_norm=False) -> dict:
+    """The shapes of :func:`mlp_init`'s tree."""
+    p = {"w": [(a, b) for a, b in zip(dims[:-1], dims[1:])],
+         "b": [(b,) for b in dims[1:]]}
+    if layer_norm:
+        p["ln_scale"] = p["ln_bias"] = (dims[-1],)
+    return p
+
+
+def mlp_shape_dtypes(dims, *, dtype=torch.float32, layer_norm=False):
+    """:func:`mlp_init`'s tree as ``meta`` tensors (the dry run's)."""
+    return meta_tree(mlp_shapes(dims, layer_norm), dtype)
+
+
 def constrain_batch(batch: GraphBatch, replicate_nodes: bool = True):
-    """The identity: one device holds the whole batch.  (The JAX version
-    shards the edges over the mesh and, for huge graphs, the nodes; the
-    port's sharding is ROADMAP queue 1 item 14.)"""
-    return batch
+    """Sharding: edges data-parallel over the whole mesh; nodes replicated
+    (full batch) or split on 'model' (huge graphs)."""
+    es = constrain(batch.edge_src, ("batch",))
+    ed = constrain(batch.edge_dst, ("batch",))
+    nf = batch.node_feat if replicate_nodes else constrain(
+        batch.node_feat, ("tensor", None))
+    return dataclasses.replace(batch, edge_src=es, edge_dst=ed, node_feat=nf)
 
 
 def node_loss(logits, batch: GraphBatch):

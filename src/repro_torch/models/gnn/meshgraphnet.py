@@ -18,9 +18,9 @@ import torch
 
 from repro_torch.core.backend import resolve_device
 from repro_torch.core.precision import f32_accumulation
-from repro_torch.core.tree import copy_from_numpy
+from repro_torch.core.tree import copy_from_numpy, meta_tree
 from repro_torch.models.gnn.common import (GraphBatch, mlp_apply, mlp_init,
-                                           scatter_dst)
+                                           mlp_shapes, scatter_dst)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,14 +39,6 @@ def _mlp_dims(cfg, d_in):
     return [d_in] + [cfg.d_hidden] * cfg.mlp_layers + [cfg.d_hidden]
 
 
-def _mlp_shapes(dims, layer_norm):
-    p = {"w": [(a, b) for a, b in zip(dims[:-1], dims[1:])],
-         "b": [(b,) for b in dims[1:]]}
-    if layer_norm:
-        p["ln_scale"] = p["ln_bias"] = (dims[-1],)
-    return p
-
-
 def _mlps(cfg: MGNConfig):
     """name -> (dims, layer_norm) of each MLP; the processor's as lists."""
     proc_edge = (_mlp_dims(cfg, 3 * cfg.d_hidden), True)
@@ -60,8 +52,13 @@ def _mlps(cfg: MGNConfig):
 
 
 def param_shapes(cfg: MGNConfig) -> dict:
-    return {k: ([_mlp_shapes(*m) for m in v] if isinstance(v, list)
-                else _mlp_shapes(*v)) for k, v in _mlps(cfg).items()}
+    return {k: ([mlp_shapes(*m) for m in v] if isinstance(v, list)
+                else mlp_shapes(*v)) for k, v in _mlps(cfg).items()}
+
+
+def param_shape_dtypes(cfg: MGNConfig) -> dict:
+    """The parameter tree as ``meta`` tensors (the dry run's shapes)."""
+    return meta_tree(param_shapes(cfg), cfg.dtype)
 
 
 def init_params(cfg: MGNConfig, generator: torch.Generator, *, device=None):

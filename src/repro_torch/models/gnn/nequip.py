@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.backend import resolve_device
 from repro_torch.core.precision import f32_accumulation
-from repro_torch.core.tree import copy_from_numpy
+from repro_torch.core.tree import copy_from_numpy, meta_tree
 from repro_torch.models.gnn.common import GraphBatch
 from repro_torch.models.gnn.irreps import PATHS, real_cg
 
@@ -100,6 +100,11 @@ def param_shapes(cfg: NequIPConfig) -> dict:
             "layers": [{k: dict(v) for k, v in layer.items()}
                        for _ in range(cfg.n_layers)],
             "readout_w1": (cfg.mul, cfg.mul), "readout_w2": (cfg.mul, 1)}
+
+
+def param_shape_dtypes(cfg: NequIPConfig) -> dict:
+    """The parameter tree as ``meta`` tensors (the dry run's shapes)."""
+    return meta_tree(param_shapes(cfg), cfg.dtype)
 
 
 def init_params(cfg: NequIPConfig, generator: torch.Generator, *,

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.backend import resolve_device
 from repro_torch.core.precision import f32_accumulation
-from repro_torch.core.tree import copy_from_numpy
+from repro_torch.core.tree import copy_from_numpy, meta_tree
 from repro_torch.models.gnn.common import GraphBatch, node_loss, spmm
 
 
@@ -34,6 +34,11 @@ def param_shapes(cfg: SageConfig) -> dict:
     ws = [(a, b) for a, b in zip(dims[:-1], dims[1:])]
     return {"w_self": list(ws), "w_nbr": list(ws),
             "b": [(b,) for b in dims[1:]]}
+
+
+def param_shape_dtypes(cfg: SageConfig) -> dict:
+    """The parameter tree as ``meta`` tensors (the dry run's shapes)."""
+    return meta_tree(param_shapes(cfg), cfg.dtype)
 
 
 def init_params(cfg: SageConfig, generator: torch.Generator, *, device=None):

@@ -8,9 +8,10 @@ stream untouched).  ``groups > 1`` dispatches per token group (GShard's G
 axis), with the capacity per group.
 
 The JAX module has no Pallas kernel: its products are XLA einsums, and so
-the port's are batched matmuls.  Its ``constrain`` calls place the groups
-and experts on a TPU mesh; on one device they are the identity (sharding
-is ROADMAP queue 1 item 14), so the port has none.  Where the JAX code
+the port's are batched matmuls.  Its ``constrain`` calls, which place the
+groups and experts on a mesh, stand at the same points here
+(``dist/sharding.py``), on the port's (E, G, C, D) expert buffer with the
+axes in that order.  Where the JAX code
 differs from what PyTorch gives by default, the port follows JAX:
 
   * ``jax.lax.top_k`` puts the lower expert first among equal
@@ -27,6 +28,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist.sharding import constrain
 
 
 def _round_up(x: int, m: int) -> int:
@@ -142,7 +145,8 @@ def _moe_ffn_grouped(x, router_w, we1, we3, we2, *, top_k: int,
     G, E = groups, router_w.shape[-1]
     Tg = T // G
     C = expert_capacity(Tg, E, top_k, capacity_factor)
-    probs, gate, eidx = _route(x.reshape(G, Tg, D).float(), router_w, top_k)
+    xg = constrain(x.reshape(G, Tg, D), ("batch", None, None))
+    probs, gate, eidx = _route(xg.float(), router_w, top_k)
     aux_loss = _aux_loss(probs, eidx, E)
 
     perm, e_s, t_s, rank, keep = _dispatch(eidx, C)
@@ -152,7 +156,9 @@ def _moe_ffn_grouped(x, router_w, we1, we3, we2, *, top_k: int,
     base = grp * C + rank
     row = torch.where(keep, e_s * (G * C) + base, E * G * C).reshape(-1)
     xe = x.new_zeros((E * G * C + 1, D)).index_put((row,), x[tok])
+    constrain(xe[:-1].view(E, G, C, D), ("expert", "batch", None, None))
     ye = _experts(xe[:-1].view(E, G * C, D), we1, we3, we2, x.dtype)
+    constrain(ye.view(E, G, C, D), ("expert", "batch", None, None))
     # a dropped pair reads its group's last row of the last expert (JAX's
     # slot clamped to E * C - 1) with weight 0
     last = ((E - 1) * G + grp) * C + C - 1

@@ -2,10 +2,11 @@
 
 Port of ``repro/models/recsys.py``.  Assigned config: embed_dim 32,
 behavior seq_len 20, 1 transformer block, 8 heads, MLP 1024-512-256.
-Params are a dict laid out like the JAX pytree.  The item table (10^6-10^9
-rows) is row-sharded over the mesh in the JAX package; on one device it is
-one tensor, and ``constrain`` is the identity (sharding is ROADMAP queue 1
-item 14).  The table's gradient is dense (V, D), as in JAX.
+Params are a dict laid out like the JAX pytree, with the JAX package's
+logical sharding axes (:func:`logical_axes`: the item table, 10^6-10^9
+rows, is row-sharded over the mesh) and its ``constrain`` point
+(``dist/sharding.py``); one card holds every tensor whole.  The table's
+gradient is dense (V, D), as in JAX.
 
   train_batch     (B=65536)  CTR training step (BCE)
   serve_p99       (B=512)    online scoring
@@ -23,7 +24,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.backend import resolve_device
 from repro_torch.core.precision import f32_accumulation
-from repro_torch.core.tree import copy_from_numpy, leaves, set_path, tree_map
+from repro_torch.core.tree import (copy_from_numpy, leaves, meta_tree,
+                                   set_path, tree_map)
+from repro_torch.dist.sharding import constrain
 from repro_torch.models.embedding import gspmd_lookup
 
 
@@ -43,8 +46,7 @@ class BSTConfig:
 
 def param_shapes(cfg: BSTConfig) -> dict:
     """The parameter tree's shapes, laid out like the JAX pytree (the JAX
-    function also returns each leaf's logical sharding axes, which one
-    device does not need)."""
+    function also returns each leaf's logical axes: :func:`logical_axes`)."""
     d = cfg.embed_dim
     dims = ((cfg.seq_len + 2) * d,) + tuple(cfg.mlp_dims) + (1,)
     return {
@@ -85,9 +87,32 @@ def params_from_numpy(cfg: BSTConfig, tree, *, device=None) -> dict:
                            resolve_device(device))
 
 
-def constrain(x, axes):
-    """The identity: one device holds the whole batch."""
-    return x
+_AXES = {"item_emb": ("storage", None), "pos_emb": (None, None),
+         "dense_proj": (None, None), "wq": (None, "tensor"),
+         "wk": (None, "tensor"), "wv": (None, "tensor"),
+         "wo": ("tensor", None), "ln1": (None,), "ln2": (None,),
+         "w1": (None, "tensor"), "w2": ("tensor", None)}
+
+
+def logical_axes(cfg: BSTConfig) -> dict:
+    """Each parameter's logical axes, laid out like the params; an MLP
+    layer's output dim shards on "tensor" only from 128 columns up."""
+    shapes = param_shapes(cfg)
+    out = tree_map(lambda s: None, shapes)
+    for path, shape in leaves(shapes):
+        if path[0] == "mlp_w":
+            axes = ("fsdp", "tensor" if shape[1] >= 128 else None)
+        elif path[0] == "mlp_b":
+            axes = (None,)
+        else:
+            axes = _AXES[path[-1]]
+        set_path(out, path, axes)
+    return out
+
+
+def param_shape_dtypes(cfg: BSTConfig) -> dict:
+    """The parameter tree as ``meta`` tensors (the dry run's shapes)."""
+    return meta_tree(param_shapes(cfg), cfg.dtype)
 
 
 def _ln(x, scale):

@@ -4,8 +4,9 @@ and MoE stacks.
 Port of ``repro/models/transformer.py`` for one device: ``LMConfig`` and
 its parameter counts, ``param_shapes``, ``init_params`` (the JAX init law),
 ``forward_hidden``, ``forward``, ``loss_fn``, ``prefill``, ``init_kv_cache``
-and ``decode_step``, plus :func:`value_and_grad` (``jax.value_and_grad`` of
-``loss_fn``).  Parameters are a plain dict laid out like the JAX pytree:
+and ``decode_step``, the dry run's ``param_shape_dtypes``, ``logical_axes``
+and ``kv_cache_shape_dtypes`` (``meta`` tensors), plus
+:func:`value_and_grad` (``jax.value_and_grad`` of ``loss_fn``).  Parameters are a plain dict laid out like the JAX pytree:
 ``embed`` (vocab, d), ``head`` (d, vocab), ``ln_f`` (d,) and ``blocks``, one
 dict per ``block_pattern`` position whose leaves are stacked over cycles,
 ``(C, ...)``; :func:`params_from_numpy` carries a JAX tree across.  A
@@ -26,10 +27,11 @@ package writes it (einsums, no Pallas kernel), in a grouped form that never
 repeats k and v over the G query heads of a kv head.  ``decode_step``
 writes the KV cache in place and returns it.  The entry points, and the
 backward of :func:`value_and_grad`, run their matmuls with f32 accumulation
-as XLA does (:func:`_f32_accumulation`).
-
-The collective matmul (``dist/overlap.py``) raises ``NotImplementedError``
-until its slice ports it.
+as XLA does (:func:`_f32_accumulation`).  With
+``use_collective_matmul`` the q/k/v and w1/w3 products run the ring matmul
+of ``dist/overlap.py::tp_matmul_ag`` over the mesh in scope (the plain
+product where there is none), and ``constrain`` (``dist/sharding.py``)
+marks the JAX package's sharding points.
 """
 from __future__ import annotations
 
@@ -43,13 +45,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.backend import resolve, resolve_device
 from repro_torch.core.backend import rmsnorm as _rmsnorm
 from repro_torch.core.precision import f32_accumulation as _f32_accumulation
-from repro_torch.core.tree import copy_from_numpy, leaves
+from repro_torch.core.tree import copy_from_numpy, leaves, meta_tree, tree_map
 from repro_torch.core.tree import value_and_grad as tree_value_and_grad
 from repro_torch.core.tree import set_path as _set
+from repro_torch.dist.overlap import tp_matmul_ag
+from repro_torch.dist.sharding import constrain
 from repro_torch.models.attention import mha
 from repro_torch.models.moe import moe_ffn
 
-OVERLAP_ITEM = "ROADMAP queue 1 item 14 (dist/overlap.py)"
 _DRAW = 1 << 28      # init_params' float32 draws: 1 GiB at most
 
 
@@ -139,6 +142,39 @@ def param_shapes(cfg: LMConfig) -> dict:
                        for k in cfg.block_pattern]}
 
 
+# each parameter's logical sharding axes (dist/sharding.py), by leaf name
+_AXES = {
+    "embed": ("vocab", "fsdp"), "head": ("fsdp", "vocab"),
+    "ln_f": ("embed",),
+    "ln1": ("layers", "embed"), "ln2": ("layers", "embed"),
+    "wq": ("layers", "fsdp", "heads"), "wk": ("layers", "fsdp", "heads"),
+    "wv": ("layers", "fsdp", "heads"), "wo": ("layers", "heads", "fsdp"),
+    "bq": ("layers", "heads"), "bk": ("layers", "heads"),
+    "bv": ("layers", "heads"),
+    "w1": ("layers", "fsdp", "ff"), "w3": ("layers", "fsdp", "ff"),
+    "w2": ("layers", "ff", "fsdp"),
+    "router": ("layers", "embed", None),
+    "we1": ("layers", "expert", "fsdp", None),
+    "we3": ("layers", "expert", "fsdp", None),
+    "we2": ("layers", "expert", None, "fsdp"),
+}
+
+
+def logical_axes(cfg: LMConfig) -> dict:
+    """Each parameter's logical axes, in a tree laid out like the params
+    (the second half of the JAX ``param_shapes``)."""
+    out = tree_map(lambda s: None, param_shapes(cfg))
+    for path, _ in leaves(param_shapes(cfg)):
+        _set(out, path, _AXES[path[-1]])
+    return out
+
+
+def param_shape_dtypes(cfg: LMConfig) -> dict:
+    """The parameter tree as ``meta`` tensors (the dry run's shapes: no
+    allocation)."""
+    return meta_tree(param_shapes(cfg), cfg.dtype)
+
+
 def _empty_like_tree(cfg: LMConfig) -> dict:
     return {"blocks": [{} for _ in cfg.block_pattern]}
 
@@ -182,12 +218,6 @@ def params_from_numpy(cfg: LMConfig, tree, *, device=None) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 
-def _check_supported(cfg: LMConfig) -> None:
-    if cfg.use_collective_matmul:
-        raise NotImplementedError(
-            f"use_collective_matmul is not ported yet: {OVERLAP_ITEM}")
-
-
 def _rope(x, positions, theta: float):
     """x: (B, H, S, dh); positions: (B, S)."""
     dh = x.shape[-1]
@@ -206,7 +236,8 @@ def _attn(p, cfg: LMConfig, x, positions, be, kv_cache=None, cache_pos=None):
     layer's cache): decode, writing the new keys and values in place."""
     B, S, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    mm = _mm(cfg)
+    q, k, v = mm(x, p["wq"]), mm(x, p["wk"]), mm(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, hq, dh).transpose(1, 2)
@@ -226,6 +257,8 @@ def _attn(p, cfg: LMConfig, x, positions, be, kv_cache=None, cache_pos=None):
         wpos = min(max(wpos, 0), Sc - S)
         ck[:, :, wpos:wpos + S] = k.to(ck.dtype)
         cv[:, :, wpos:wpos + S] = v.to(cv.dtype)
+        ck = constrain(ck, ("batch", None, "kv_seq", None))
+        cv = constrain(cv, ("batch", None, "kv_seq", None))
         out = _decode_attention(q, ck, cv, cache_pos, cfg)
     out = out.transpose(1, 2).reshape(B, S, hq * dh)
     return out @ p["wo"]
@@ -253,8 +286,13 @@ def _decode_attention(q, ck, cv, cache_pos: int, cfg: LMConfig):
     return out.reshape(B, Hq, S1, dh).to(q.dtype)
 
 
-def _ffn_dense(p, x):
-    return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+def _mm(cfg: LMConfig):
+    return tp_matmul_ag if cfg.use_collective_matmul else torch.matmul
+
+
+def _ffn_dense(p, x, cfg: LMConfig):
+    mm = _mm(cfg)
+    return (F.silu(mm(x, p["w1"])) * mm(x, p["w3"])) @ p["w2"]
 
 
 def _block(p, cfg: LMConfig, kind: str, x, positions, be, kv_cache=None,
@@ -266,13 +304,16 @@ def _block(p, cfg: LMConfig, kind: str, x, positions, be, kv_cache=None,
     x = x + _attn(p, cfg, h, positions, be, kv_cache, cache_pos)
     h = _rmsnorm(x, p["ln2"], backend=be)
     if kind == "dense":
-        return x + _ffn_dense(p, h), torch.zeros((), dtype=torch.float32,
-                                                 device=x.device)
-    y, moe_aux = moe_ffn(h.reshape(B * S, D), p["router"], p["we1"],
-                         p["we3"], p["we2"], top_k=cfg.top_k,
-                         capacity_factor=cfg.capacity_factor,
-                         groups=cfg.moe_groups)
-    return x + y.reshape(B, S, D), moe_aux["aux_loss"]
+        x = x + _ffn_dense(p, h, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        y, moe_aux = moe_ffn(h.reshape(B * S, D), p["router"], p["we1"],
+                             p["we3"], p["we2"], top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor,
+                             groups=cfg.moe_groups)
+        x = x + y.reshape(B, S, D)
+        aux = moe_aux["aux_loss"]
+    return constrain(x, ("batch", "seq", None)), aux
 
 
 def _layers(params, cfg: LMConfig):
@@ -292,13 +333,13 @@ def forward_hidden(params, cfg: LMConfig, tokens, positions=None, *,
                    backend=None):
     """Trunk only: tokens (B, S) -> hidden (B, S, D), aux (the MoE blocks'
     load-balance losses summed; 0 for a dense stack)."""
-    _check_supported(cfg)
     be = resolve(backend)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
     x = params["embed"][tokens.long()].to(cfg.dtype)
+    x = constrain(x, ("batch", "seq", None))
     remat = cfg.remat and torch.is_grad_enabled() and \
         any(t.requires_grad for _, t in leaves(params))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -317,7 +358,8 @@ def forward_hidden(params, cfg: LMConfig, tokens, positions=None, *,
 def forward(params, cfg: LMConfig, tokens, positions=None, *, backend=None):
     """tokens (B, S) -> logits (B, S, V) float32, aux."""
     x, aux = forward_hidden(params, cfg, tokens, positions, backend=backend)
-    return (x @ params["head"]).float(), aux
+    logits = (x @ params["head"]).float()
+    return constrain(logits, ("batch", "seq", "vocab")), aux
 
 
 def loss_fn(params, cfg: LMConfig, tokens, targets, *, backend=None):
@@ -372,13 +414,18 @@ def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, *,
                   for _ in range(2)) for _ in cfg.block_pattern]
 
 
+def kv_cache_shape_dtypes(cfg: LMConfig, batch: int, max_len: int,
+                          dtype=None):
+    """The KV cache as ``meta`` tensors (the dry run's shapes)."""
+    return init_kv_cache(cfg, batch, max_len, dtype, device="meta")
+
+
 @_f32_accumulation()
 def decode_step(params, cfg: LMConfig, tokens, kv_cache, cache_pos, *,
                 backend=None):
     """One decode step: tokens (B, 1) at position ``cache_pos`` (the
     current length).  Writes the cache in place; returns (logits (B, V)
     float32, the cache)."""
-    _check_supported(cfg)
     be = resolve(backend)
     cache_pos = int(cache_pos)
     B = tokens.shape[0]

@@ -188,7 +188,9 @@ def test_configs_and_cells_match_jax():
 def test_moe_and_collective_matmul_raise():
     """MoE blocks run on every entry point (their load-balance loss in
     ``aux``; the fixture test ``test_torch_lm_zoo.py`` holds them to JAX);
-    the collective matmul still raises, naming ROADMAP item 14."""
+    the collective matmul, which raised until ``dist/overlap.py`` was
+    ported, is the plain product with no mesh in scope (its ring against
+    JAX's is ``test_torch_dist.py``'s)."""
     toks = torch.zeros((1, 4), dtype=torch.long)
     moe = T.LMConfig(n_layers=2, d_model=16, n_heads=2, n_kv_heads=1,
                      d_head=8, d_ff=32, vocab=32, block_pattern=("moe",),
@@ -203,9 +205,9 @@ def test_moe_and_collective_matmul_raise():
                           T.init_kv_cache(moe, 1, 4, device="cpu"), 0)
     assert_allclose(lg.numpy(), logits[:, 0].numpy(), **TOL)
     cm = dataclasses.replace(tcfg.REDUCED, use_collective_matmul=True)
-    with pytest.raises(NotImplementedError, match="overlap"):
-        T.prefill(T.init_params(cm, torch.Generator().manual_seed(0),
-                                device="cpu"), cm, toks)
+    p = T.init_params(cm, torch.Generator().manual_seed(0), device="cpu")
+    assert torch.equal(T.prefill(p, cm, toks)[0],
+                       T.prefill(p, tcfg.REDUCED, toks)[0])
 
 
 def test_entry_points_default_to_cuda():

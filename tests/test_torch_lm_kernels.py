@@ -112,7 +112,9 @@ def test_rmsnorm_wrapper_checks():
     with pytest.raises(ValueError):
         rk.rmsnorm_fwd(x.to(torch.int32), torch.zeros(8, dtype=torch.int32))
     with pytest.raises(ValueError):          # never a fallback off the CPU
-        rk.rmsnorm_fwd(x.to("meta"), torch.zeros(8, device="meta"))
+        rk.rmsnorm_fwd(x.to("meta"), torch.zeros(8))
+    y = rk.rmsnorm_fwd(x.to("meta"), torch.zeros(8, device="meta"))
+    assert y.device.type == "meta" and y.shape == x.shape   # the dry run's
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +260,10 @@ def test_flash_wrapper_checks():
         fk.flash_fwd(q, torch.zeros((2, 0, 16)), torch.zeros((2, 0, 16)),
                      **kw)
     with pytest.raises(ValueError):          # never a fallback off the CPU
-        fk.flash_fwd(q.to("meta"), k.to("meta"), k.to("meta"), **kw)
+        fk.flash_fwd(q.to("meta"), k.to("meta"), k, **kw)
+    o, lse = fk.flash_fwd(q.to("meta"), k.to("meta"), k.to("meta"), **kw)
+    assert (o.device.type, o.shape, lse.shape) == ("meta", q.shape,
+                                                   q.shape[:2])
 
 
 def test_ops_are_forward_only(monkeypatch):
@@ -401,7 +406,11 @@ def test_flash_bwd_wrapper_checks():
     with pytest.raises(ValueError):
         fk.flash_bwd(q, k, k, q, lse, lse[:, :7].contiguous(), **kw)
     with pytest.raises(ValueError):          # never a fallback off the CPU
-        fk.flash_bwd(*(t.to("meta") for t in (q, k, k, q, lse, lse)), **kw)
+        fk.flash_bwd(*(t.to("meta") for t in (q, k, k, q, lse)), lse, **kw)
+    dq, dk, dv = fk.flash_bwd(*(t.to("meta") for t in (q, k, k, q, lse, lse)),
+                              **kw)
+    assert dq.device.type == "meta" and (dq.shape, dk.shape, dv.shape) == \
+        (q.shape, k.shape, k.shape)
     # on CPU tensors each kernel's wrapper gives its part of flash_bwd's
     rng = np.random.default_rng(3)
     args = [torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32))
